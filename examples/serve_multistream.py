@@ -1,6 +1,6 @@
-"""Serve N camera streams batched across the TPU mesh — the multi-camera
+"""Serve N camera streams batched across the device mesh — the multi-camera
 deployment (BASELINE.json config 5: "8x concurrent 1080p streams batched
-across a TPU slice"). Sources here are synthetic; swap open_source() targets
+across a device mesh"). Sources here are synthetic; swap open_source() targets
 for real RTSP URLs.
 """
 

@@ -561,10 +561,11 @@ class TestProcessingChain:
 
 
 class TestEnvelopeObservability:
-    """The emit warp silently clamps corrections outside the static envelope
-    (|da| <= warp_envelope_deg, |shift| <= 128 px; pallas/warp.py:22-25).
-    The `envelope_exceeded` state counter is the observability signal —
-    these tests pin the boundary on both sides."""
+    """The emit warp is the u8 gather warp (ops/warp.warp_affine_fast):
+    exact bilinear for any correction, with no static envelope to leave.
+    The `envelope_exceeded` state counter therefore stays 0 on both sides
+    of the old boundary (|da| = warp_envelope_deg, |shift| = 128 px), and
+    the emitted frame matches the exact warp there."""
 
     def _emit_once(self, angle_deg, shift=0.0):
         """Hand-built state whose applied correction is EXACTLY
@@ -578,9 +579,8 @@ class TestEnvelopeObservability:
         from tests.conftest import make_bgr
 
         # full_res_corrections off: the hand-built raw IS the applied
-        # correction, so the boundary asserts pin WARP_MAX_SHIFT /
-        # warp_envelope_deg directly (the frame here is smaller than the
-        # analysis size, so the default rescale would move the boundary).
+        # correction (the frame here is smaller than the analysis size,
+        # so the default rescale would scale the shift).
         params = StabilizerParams(smoothing_radius=5,
                                   full_res_corrections=False, **SMALL)
         h, w = 64, 96
@@ -598,24 +598,35 @@ class TestEnvelopeObservability:
         new_state, out = stabilizer_emit_step_fn(params, state)
         return int(new_state.envelope_exceeded), np.asarray(out), frame
 
+    @staticmethod
+    def _exact(frame, shift, angle_deg):
+        from video_stab_tpu.ops.warp import similarity_matrix
+
+        m = np.asarray(similarity_matrix(shift, 0.0,
+                                         float(np.radians(angle_deg))))
+        return cv2.warpAffine(frame, m, (frame.shape[1], frame.shape[0]),
+                              flags=cv2.INTER_LINEAR).astype(np.float32)
+
     def test_counter_inside_vs_outside_rotation(self):
-        n_in, _, _ = self._emit_once(2.9)
-        n_out, _, _ = self._emit_once(3.1)
-        assert n_in == 0
-        assert n_out == 1
+        for angle in (2.9, 3.1):
+            n, out, frame = self._emit_once(angle)
+            assert n == 0
+            d = np.abs(out.astype(np.float32) - self._exact(frame, 0.0,
+                                                            angle))
+            assert d[2:-2, 2:-2].max() <= 1.0, (angle, d.max())
 
     def test_counter_shift_boundary(self):
-        n_in, _, _ = self._emit_once(0.0, shift=127.0)
-        n_out, _, _ = self._emit_once(0.0, shift=129.0)
-        assert n_in == 0
-        assert n_out == 1
+        for shift in (127.0, 129.0):
+            n, out, frame = self._emit_once(0.0, shift=shift)
+            assert n == 0
+            d = np.abs(out.astype(np.float32) - self._exact(frame, shift,
+                                                            0.0))
+            assert d[2:-2, 2:-2].max() <= 1.0, (shift, d.max())
 
     def test_warp_degrades_only_outside_envelope(self):
-        """Inside the envelope the warp is exact bilinear; outside it clamps
-        to the envelope pad (degraded, not unsafe). Oracle: cv2's bilinear
-        warp (same forward-matrix convention, TestWarp golden) — one
-        compiled program instead of two (a wide-envelope twin of the tiled
-        warp costs ~15 s of suite compile for no extra coverage)."""
+        """The gather warp has no envelope: exact bilinear both at 2.5 deg
+        and at 12 deg, where the old tiled warp clamped. Oracle: cv2's
+        bilinear warp (same forward-matrix convention, TestWarp golden)."""
         import jax.numpy as jnp
 
         from video_stab_tpu.ops.warp import (similarity_matrix,
@@ -627,14 +638,14 @@ class TestEnvelopeObservability:
 
         def err_vs_oracle(angle_deg):
             m = similarity_matrix(0.0, 0.0, float(np.radians(angle_deg)))
-            got = np.asarray(warp_affine_fast(frame, m, max_angle_deg=3.0))
+            got = np.asarray(warp_affine_fast(frame, m))
             oracle = cv2.warpAffine(frame_np, np.asarray(m), (96, 64),
                                     flags=cv2.INTER_LINEAR).astype(np.float32)
             # Ignore the rim: cv2 blends the constant at the exact border.
             return float(np.abs(got - oracle)[2:-2, 2:-2].max())
 
-        assert err_vs_oracle(2.5) <= 1.0       # in-envelope: exact (u8 tie)
-        assert err_vs_oracle(12.0) > 1.0       # clamped: visibly degraded
+        assert err_vs_oracle(2.5) <= 1.0       # exact (u8 tie)
+        assert err_vs_oracle(12.0) <= 1.0      # still exact: no clamping
 
     def test_counter_in_streaming_metrics(self):
         """The counter reaches Stabilizer.last_metrics through the combined
@@ -648,6 +659,59 @@ class TestEnvelopeObservability:
             st.stabilize(f)
         assert "envelope_exceeded" in st.last_metrics
         assert int(np.asarray(st.last_metrics["envelope_exceeded"])) == 0
+
+
+class TestEmitCorrection:
+    """stabilizer_emit_correction_fn is the transform the emit step
+    applies (the figure the card-vs-CPU chain parity compares)."""
+
+    @staticmethod
+    def _queued_state(model, jittered_clip):
+        st = Stabilizer(StabilizerParams(smoothing_radius=5,
+                                         motion_model=model, **SMALL))
+        run_clip(st, jittered_clip[0][:12], flush=False)
+        return st.params, st._state
+
+    @pytest.mark.parametrize("model", ["similarity", "homography"])
+    def test_correction_reproduces_emission(self, model, jittered_clip):
+        """Warping the queued frame with the correction gives the emitted
+        frame, bit for bit."""
+        from video_stab_tpu.core.stabilizer import (
+            stabilizer_emit_correction_fn, stabilizer_emit_step_fn)
+        from video_stab_tpu.motion.homography import exp_homography
+        from video_stab_tpu.ops.warp import (similarity_matrix,
+                                             warp_affine_fast,
+                                             warp_perspective_fast)
+
+        params, state = self._queued_state(model, jittered_clip)
+        _, out = stabilizer_emit_step_fn(params, state)
+        _, corr = stabilizer_emit_correction_fn(params, state)
+        frame = state.frame_ring[int(state.emit_idx)
+                                 % state.frame_ring.shape[0]]
+        if model == "homography":
+            expect = warp_perspective_fast(frame,
+                                           exp_homography(corr.reshape(3, 3)))
+        else:
+            assert corr.shape == (3,)
+            expect = warp_affine_fast(frame, similarity_matrix(*corr))
+        assert float(np.abs(np.asarray(corr)).max()) > 0.0
+        np.testing.assert_array_equal(np.asarray(out),
+                                      np.asarray(expect).astype(np.uint8))
+
+    @pytest.mark.parametrize("model", ["similarity", "homography"])
+    def test_correction_read_back_after_emit(self, model, jittered_clip):
+        """With the box smoother the correction can be read back from the
+        state after the emission, its cursor stepped back by one."""
+        from video_stab_tpu.core.stabilizer import (
+            stabilizer_emit_correction_fn, stabilizer_emit_step_fn)
+
+        params, state = self._queued_state(model, jittered_clip)
+        _, before = stabilizer_emit_correction_fn(params, state)
+        after_state, _ = stabilizer_emit_step_fn(params, state)
+        assert int(after_state.emit_idx) == int(state.emit_idx) + 1
+        _, after = stabilizer_emit_correction_fn(
+            params, after_state._replace(emit_idx=after_state.emit_idx - 1))
+        np.testing.assert_array_equal(np.asarray(before), np.asarray(after))
 
 
 class TestCanvasCoverage:
@@ -676,10 +740,11 @@ class TestCanvasCoverage:
 
 
     def test_placement_decomposition_matches_full_warp(self):
-        """virtual_canvas_apply's intermediate-warp + static-placement must
-        equal the full-canvas warp of the frame (the VMEM-safe exact
-        decomposition). With no history (weight==0) the composite IS the
-        warped frame, so the output crop must match a reference full warp."""
+        """virtual_canvas_apply warps the frame straight into canvas space:
+        with no history (weight==0) the composite IS the warped frame, so
+        the output crop must match a full-canvas warp — the exact u8
+        gather warp, and cv2's bilinear warp within one u8 level — also
+        for a shift far past the old 128 px intermediate margin."""
         import jax.numpy as jnp
 
         from video_stab_tpu.core.canvas import (canvas_init_value,
@@ -687,28 +752,31 @@ class TestCanvasCoverage:
         from video_stab_tpu.core.params import StabilizerParams
         from video_stab_tpu.ops.warp import (BORDER_CONSTANT,
                                              similarity_matrix,
-                                             warp_affine_tiled)
+                                             warp_affine_fast)
         rng = np.random.default_rng(5)
         h, w = 40, 56
-        for scale in (1.25, 1.5):
+        for scale, corr in ((1.25, (3.7, -2.2, 0.01)),
+                            (1.5, (3.7, -2.2, 0.01)),
+                            (1.5, (150.0, -9.0, 0.2))):
             params = StabilizerParams(enable_virtual_canvas=True,
                                       canvas_scale_factor=scale)
-            frame = jnp.asarray(
-                rng.integers(0, 255, (h, w, 3)).astype(np.float32))
+            frame_u8 = rng.integers(0, 255, (h, w, 3)).astype(np.uint8)
+            frame = jnp.asarray(frame_u8.astype(np.float32))
             canvas, weight = canvas_init_value(params, h, w)
             hc, wc = canvas.shape[:2]
             oy, ox = (hc - h) / 2.0, (wc - w) / 2.0
-            corr = jnp.asarray([3.7, -2.2, 0.01], jnp.float32)
+            corr = jnp.asarray(corr, jnp.float32)
             _, _, out = virtual_canvas_apply(params, canvas, weight, frame,
                                              corr)
             m = similarity_matrix(corr[0] + ox, corr[1] + oy, corr[2])
-            full = warp_affine_tiled(frame, m, out_h=hc, out_w=wc,
-                                     border_mode=BORDER_CONSTANT,
-                                     max_shift=int(max(ox, oy)) + 32)
-            full_u8 = np.clip(np.round(np.asarray(full)), 0, 255)
+            full = np.asarray(warp_affine_fast(frame, m, out_h=hc, out_w=wc,
+                                               border_mode=BORDER_CONSTANT))
             y0, x0 = int(round(oy)), int(round(ox))
-            ref = full_u8[y0:y0 + h, x0:x0 + w]
-            np.testing.assert_allclose(np.asarray(out), ref, atol=1.0)
-            # <=1 u8 level everywhere (rounding-order), exact nearly always
-            frac_diff = (np.abs(np.asarray(out) - ref) > 0).mean()
-            assert frac_diff < 0.02, frac_diff
+            np.testing.assert_array_equal(np.asarray(out),
+                                          full[y0:y0 + h, x0:x0 + w])
+            golden = cv2.warpAffine(frame_u8, np.asarray(m), (wc, hc),
+                                    flags=cv2.INTER_LINEAR,
+                                    borderMode=cv2.BORDER_CONSTANT)
+            d = np.abs(np.asarray(out)
+                       - golden[y0:y0 + h, x0:x0 + w].astype(np.float32))
+            assert d[2:-2, 2:-2].max() <= 1.0, d.max()

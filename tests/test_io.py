@@ -32,7 +32,8 @@ from video_stab_tpu.utils.config import (
     save_config,
 )
 
-REFERENCE_CONFIG = "/root/reference/examples/config.yaml"
+REFERENCE_CONFIG = os.path.join(os.path.dirname(__file__), "fixtures",
+                                "reference_config.yaml")
 
 
 class TestSources:

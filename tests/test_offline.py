@@ -167,3 +167,67 @@ class TestHomographyPath:
         out = stabilize_clip(clip, p)
         assert out.shape == clip.shape
         assert _jitter(out) < _jitter(clip) * 0.6
+
+
+class TestBoxSmoother:
+    """The offline box smoother (offline.box_filter_centered) and the plain
+    oracle of the reference's CUDA kernel (box_filter_convolve_reference,
+    src/stabilizer_cuda.cu:7-67)."""
+
+    def test_oracle_matches_cuda_kernel_layout(self):
+        # Hand-check the window convention on a tiny case vs the reference
+        # kernel math (stabilizer_cuda.cu:7-16): out[i] = mean of
+        # padded[i..i+r-1] with r median samples prepended.
+        import jax.numpy as jnp
+
+        from video_stab_tpu.offline import box_filter_convolve_reference
+        path = jnp.asarray([1.0, 2.0, 3.0, 4.0], jnp.float32)
+        r = 2
+        med = 3.0  # upper median of [1,2,3,4]
+        padded = [med, med, 1.0, 2.0, 3.0, 4.0]
+        expect = [(padded[i] + padded[i + 1]) / 2 for i in range(4)]
+        got = np.asarray(box_filter_convolve_reference(path, r))
+        assert np.allclose(got, expect)
+
+    @pytest.mark.parametrize("r", [1, 5, 16, 50])
+    def test_centered_interior_matches_kernel_oracle(self, r):
+        """Interior i in [r, n-r-2]: the centered window [i-r, i+r] is the
+        kernel's trailing window of width 2r+1 ending at i+r."""
+        import jax.numpy as jnp
+
+        from video_stab_tpu.offline import (box_filter_centered,
+                                            box_filter_convolve_reference)
+        rng = np.random.default_rng(r)
+        path = jnp.asarray(rng.normal(0, 5, (300, 3)).astype(np.float32))
+        got = np.asarray(box_filter_centered(path, r))
+        ref = np.asarray(box_filter_convolve_reference(path, 2 * r + 1))
+        n = path.shape[0]
+        np.testing.assert_allclose(got[r:n - r - 1], ref[2 * r + 1:n],
+                                   atol=1e-4)
+
+    def test_centered_edges_clamp_and_renormalize(self):
+        import jax.numpy as jnp
+
+        from video_stab_tpu.offline import box_filter_centered
+        path = np.arange(10, dtype=np.float32)[:, None] ** 2
+        got = np.asarray(box_filter_centered(jnp.asarray(path), 3))[:, 0]
+        expect = [path[max(0, i - 3):i + 4, 0].mean() for i in range(10)]
+        np.testing.assert_allclose(got, expect, rtol=1e-6)
+        # Identity when the path is no longer than the radius.
+        short = jnp.asarray(path[:3])
+        np.testing.assert_array_equal(
+            np.asarray(box_filter_centered(short, 3)), path[:3])
+
+    def test_stabilize_clip_box_uses_centered_smoother(self):
+        """The box method's corrections are raw + centered-mean(path) -
+        path: a clip whose analysis motion is a pure ramp (constant pan)
+        leaves its interior untouched."""
+        import jax.numpy as jnp
+
+        from video_stab_tpu.offline import _smooth_path
+        params = StabilizerParams(smoothing_method="box", smoothing_radius=4)
+        ramp = jnp.asarray(np.stack([np.arange(40.0)] * 3, axis=1),
+                           jnp.float32)
+        sm = np.asarray(_smooth_path(params, ramp))
+        np.testing.assert_allclose(sm[4:-4], np.asarray(ramp)[4:-4],
+                                   atol=1e-4)

@@ -58,35 +58,45 @@ class TestTelemetry:
         assert f.tick() > 0.0
 
 
-class TestBenchInroundRecord:
-    """bench.py's in-round record is what the outage fallback replays in
-    the official driver artifact — its write path must be load-bearing."""
+class TestCompilationCache:
+    """utils/cache.enable_compilation_cache: JAX_COMPILATION_CACHE_DIR
+    wins; otherwise a fixed absolute path inside the checkout."""
 
-    def test_write_and_replay_roundtrip(self, tmp_path):
-        import importlib.util
-        import json
+    def test_environment_variable_wins(self, monkeypatch, tmp_path):
+        import jax
+
+        from video_stab_tpu.utils import cache
+
+        before = jax.config.jax_compilation_cache_dir
+        monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
+        assert cache.enable_compilation_cache() == str(tmp_path)
+        assert jax.config.jax_compilation_cache_dir == before
+
+    def test_default_is_absolute_and_fixed(self, monkeypatch, tmp_path):
         import os
-        import sys
 
-        spec = importlib.util.spec_from_file_location(
-            "bench", os.path.join(os.path.dirname(__file__), os.pardir,
-                                  "bench.py"))
-        bench = importlib.util.module_from_spec(spec)
-        sys.modules["bench"] = bench
-        spec.loader.exec_module(bench)
+        from video_stab_tpu.utils import cache
 
-        out = {"value": 512.3, "ms_per_frame_1080p_amortized": 1.95,
-               "fps_4k": 270.0, "fps_8x1080p_aggregate": 460.0,
-               "fps_1080p_chain": None,            # omitted when null
-               "latency_tunnel_bound": False,
-               "degraded_runtime": False,
-               "warp_single_tier_fallback": False}
-        path = tmp_path / "BENCH_INROUND.json"
-        rec = bench.write_inround_record(out, path=str(path))
-        on_disk = json.loads(path.read_text())
-        assert on_disk == rec
-        assert on_disk["stabilized_fps_1080p"] == 512.3
-        assert "fps_1080p_chain" not in on_disk
-        assert on_disk["latency_tunnel_bound"] is False
-        assert on_disk["provenance"].startswith("in-round measurement")
-        assert on_disk["commit"] and on_disk["commit"] != "unknown"
+        monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+        first = cache.compilation_cache_dir()
+        monkeypatch.chdir(tmp_path)
+        assert cache.compilation_cache_dir() == first
+        assert os.path.isabs(first)
+        repo = os.path.abspath(os.path.join(os.path.dirname(__file__),
+                                            os.pardir))
+        assert first == os.path.join(repo, ".jax_cache",
+                                     "host-" + cache.host_fingerprint())
+
+    def test_enable_sets_the_fixed_path(self, monkeypatch):
+        import jax
+
+        from video_stab_tpu.utils import cache
+
+        monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+        before = jax.config.jax_compilation_cache_dir
+        try:
+            path = cache.enable_compilation_cache()
+            assert path == cache.compilation_cache_dir()
+            assert jax.config.jax_compilation_cache_dir == path
+        finally:
+            jax.config.update("jax_compilation_cache_dir", before)

@@ -10,9 +10,8 @@ import sys
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), os.pardir))
 
 import jax
-from video_stab_tpu.utils.cache import compilation_cache_dir
-jax.config.update("jax_compilation_cache_dir",
-                  compilation_cache_dir(".jax_cache"))
+from video_stab_tpu.utils.cache import enable_compilation_cache
+enable_compilation_cache()
 jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
 import cv2
 cv2.setNumThreads(0)

@@ -17,9 +17,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from video_stab_tpu.utils.cache import compilation_cache_dir
-jax.config.update("jax_compilation_cache_dir",
-                  compilation_cache_dir(".jax_cache"))
+from video_stab_tpu.utils.cache import enable_compilation_cache
+enable_compilation_cache()
 jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
 
 N, WIN, S = 200, 15, 32

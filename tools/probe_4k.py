@@ -1,4 +1,4 @@
-"""4K component breakdown (scan-amortized) — where do 7.7 ms/frame go?
+"""4K component breakdown (scan-amortized) — where does the 4K step's time go?
 
 Run: timeout 900 python tools/probe_4k.py
 """
@@ -12,9 +12,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from video_stab_tpu.utils.cache import compilation_cache_dir
-jax.config.update("jax_compilation_cache_dir",
-                  compilation_cache_dir(".jax_cache"))
+from video_stab_tpu.utils.cache import enable_compilation_cache
+enable_compilation_cache()
 jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
 
 H, W = 2160, 3840
@@ -97,7 +96,7 @@ def scan_warp(img):
     def body(c, i):
         ang = (i.astype(jnp.float32) % 7.0 - 3.0) * 0.003
         m = similarity_matrix(ang * 10.0, ang * 7.0, ang)
-        out = warp_affine_fast(c, m, max_angle_deg=3.0, max_shift=128)
+        out = warp_affine_fast(c, m)
         return out.astype(jnp.uint8), jnp.float32(0.0)
     img, _ = jax.lax.scan(body, img, jnp.arange(K, dtype=jnp.int32))
     return img, jnp.mean(img.astype(jnp.float32))

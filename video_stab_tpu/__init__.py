@@ -1,7 +1,7 @@
-"""video_stab_tpu — a TPU-native real-time video stabilization & streaming framework.
+"""video_stab_tpu — a real-time video stabilization & streaming framework.
 
-A ground-up JAX/XLA/Pallas redesign of the capabilities of OmerMersin/video-stab
-(C++/CUDA/OpenCV/GStreamer library for NVIDIA Jetson; see /root/reference):
+A ground-up JAX/XLA redesign of the capabilities of OmerMersin/video-stab
+(C++/CUDA/OpenCV/GStreamer library for NVIDIA Jetson):
 
 - ``video_stab_tpu.ops``     — pure JAX vision ops (color, resize, warp, features,
   sparse pyramidal Lucas-Kanade flow, Canny, Hough, CLAHE, morphology).
@@ -13,7 +13,6 @@ A ground-up JAX/XLA/Pallas redesign of the capabilities of OmerMersin/video-stab
   Enhancer component APIs mirroring the reference ``Parameters`` structs
   (reference: include/video/Stabilizer.h:76-175 etc.), built as pure
   ``step(state, frame) -> (state, out)`` functions over explicit state pytrees.
-- ``video_stab_tpu.pallas``  — fused TPU kernels for the hot paths.
 - ``video_stab_tpu.models``  — learned components (DeepStab transform predictor,
   detector + multi-object tracker: the DeepStreamTracker counterpart).
 - ``video_stab_tpu.parallel``— device-mesh multi-stream serving (vmap + sharding).

@@ -88,7 +88,7 @@ def cmd_stabilize(args) -> int:
 
 
 def cmd_offline(args) -> int:
-    """Whole-clip batch stabilization (TPU throughput mode; supports the
+    """Whole-clip batch stabilization (the throughput mode; supports the
     cinematic --method l1 path)."""
     _quiet_cv2()
     import cv2
@@ -191,8 +191,7 @@ def cmd_bench(args) -> int:
         spec = importlib.util.spec_from_file_location("bench", path)
         bench = importlib.util.module_from_spec(spec)
         spec.loader.exec_module(bench)
-    bench.main()
-    return 0
+    return bench.main([])
 
 
 def cmd_train_detector(args) -> int:
@@ -248,7 +247,7 @@ def cmd_profile(args) -> int:
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="vstab",
-                                description="TPU-native video stabilization")
+                                description="Real-time video stabilization")
     sub = p.add_subparsers(dest="cmd", required=True)
 
     pr = sub.add_parser("run", help="run from a YAML config (vsg.cpp mode)")
@@ -312,6 +311,12 @@ def main(argv=None) -> int:
     pp.set_defaults(fn=cmd_profile)
 
     args = p.parse_args(argv)
+    if args.fn is not cmd_bench:        # bench.main makes both calls itself
+        from video_stab_tpu.utils.cache import enable_compilation_cache
+        from video_stab_tpu.utils.device import require_gpu
+
+        enable_compilation_cache()
+        require_gpu()
     return args.fn(args)
 
 

@@ -1,4 +1,4 @@
-"""Auto zoom-crop — TPU-native rebuild of vs::AutoZoomCrop
+"""Auto zoom-crop — rebuild of vs::AutoZoomCrop
 (src/AutoZoomCrop.cpp, include/video/AutoZoomCrop.h:15).
 
 Removes the black corners a roll rotation introduces: build a content mask
@@ -6,13 +6,13 @@ Removes the black corners a roll rotation introduces: build a content mask
 interior rectangle via the reference's iterative border-shrink
 (checkInteriorExterior, AutoZoomCrop.cpp:10-80, 189-204), re-center to the
 original aspect ratio (206-220), then crop + resize in ONE warp_affine with a
-dynamic crop rect but static output shape (the TPU-friendly replacement for
+dynamic crop rect but static output shape (the static-shape replacement for
 the reference's CPU findContours + GPU crop + warp resize, 141-282).
 
 The reference selects the largest contour before the shrink loop; after the
 morphological close the content region of a rotated frame is a single
 component, so the shrink runs directly on the content mask here (documented
-deviation — avoids data-dependent connected components on the TPU).
+deviation — avoids data-dependent connected components on the device).
 """
 
 from __future__ import annotations
@@ -127,7 +127,7 @@ def auto_zoom_crop_f32(params: AutoZoomCropParams, frame: jnp.ndarray,
     # pixel (x, y) reads source (nx0 + x*new_w/out_w, y0 + y*rh/out_h).
     # The rect is data-dependent (traced), so the sample runs as two
     # on-device interpolation-matrix matmuls (ops/resize.py
-    # resample_axis_aligned) — MXU work instead of a 2-D gather.
+    # resample_axis_aligned) — matmuls instead of a 2-D gather.
     sx = new_w / out_w
     sy = rh / out_h
     out = resample_axis_aligned(frame, y0, sy, nx0, sx, out_h, out_w)

@@ -1,4 +1,4 @@
-"""Virtual canvas stabilization — TPU rebuild of the reference's
+"""Virtual canvas stabilization — rebuild of the reference's
 applyVirtualCanvasStabilization chain (src/Stabilizer.cpp:2066-2443).
 
 The reference keeps a deque of 30 recent frames + transforms
@@ -7,7 +7,7 @@ contouring the warped frame (2214-2279) and fills them per-pixel from
 motion-compensated history with seamless blending (2350-2398) — all
 data-dependent host loops.
 
-TPU reformulation: the frame history collapses into a RUNNING CANVAS
+Reformulation: the frame history collapses into a RUNNING CANVAS
 accumulator (scale_factor larger than the frame). Each emitted frame is
 warped into canvas space; covered pixels refresh the canvas, uncovered
 pixels keep their (temporally filled) history. A blurred coverage mask
@@ -18,8 +18,6 @@ static-shape jit op.
 """
 
 from __future__ import annotations
-
-import math
 
 import jax.numpy as jnp
 
@@ -40,10 +38,9 @@ def coverage_analytic(m: jnp.ndarray, src_h: int, src_w: int,
     Warping all-ones separates: out(x,y) = fx(sx) * fy(sy), where f is
     the tent ramp of in-bounds bilinear tap weight (1 in the interior,
     linear falloff over the one-pixel boundary band). Replaces a real
-    1-channel warp on the canvas hot path (the warp there measured
-    ~14 ms/frame at 1.25x-1080p canvas size) with two fmas + mins per
-    pixel. Identical to the tiled warp inside its envelope (exactness
-    test in tests/test_core.py)."""
+    1-channel warp on the canvas hot path with two fmas + mins per
+    pixel. Identical to a real warp of all-ones (exactness test in
+    tests/test_core.py)."""
     minv = invert_affine(m)
     ys = jnp.arange(out_h, dtype=jnp.float32)[:, None]
     xs = jnp.arange(out_w, dtype=jnp.float32)[None, :]
@@ -119,37 +116,13 @@ def virtual_canvas_apply(params, canvas: jnp.ndarray, weight: jnp.ndarray,
 
     m = similarity_matrix(correction[0] + ox, correction[1] + oy,
                           correction[2])
-    # The content warp rides the Pallas u8 strip kernel on TPU (the queued
-    # frame holds integer u8 values, and the reference warps CV_8U mats
-    # too); the coverage "warp" of all-ones is the closed-form tent
-    # product — the two tiled XLA warps here were the 55 ms/frame canvas
-    # landmine. Folding the big STATIC placement translation (ox, oy)
-    # into the warp would blow up the kernel's max_shift halos with the
-    # canvas scale (VMEM-OOM at scale 1.5/1080p); instead warp into an
-    # intermediate sized by the DYNAMIC envelope only (correction shift +
-    # rotation corner spread — canvas-scale independent) and place it at
-    # the static integer offset, which is an exact decomposition of the
-    # full-canvas warp (in-envelope; golden in tests/test_core.py).
-    env_deg = float(getattr(params, "warp_envelope_deg", 6.0))
-    margin = int(math.ceil(
-        128.0 + math.sin(math.radians(env_deg)) * max(h, w))) + 4
-    oy_i, ox_i = int(math.floor(oy)), int(math.floor(ox))
-    fy, fx = oy - oy_i, ox - ox_i
-    m_loc = similarity_matrix(correction[0] + fx + margin,
-                              correction[1] + fy + margin, correction[2])
-    wi_h, wi_w = h + 2 * margin, w + 2 * margin
-    warped_loc = warp_affine_fast(frame_f32, m_loc, out_h=wi_h, out_w=wi_w,
-                                  border_mode=BORDER_CONSTANT,
-                                  max_angle_deg=env_deg,
-                                  max_shift=margin + 132)
-    y0p, x0p = oy_i - margin, ox_i - margin
-    ty, tx = max(0, -y0p), max(0, -x0p)
-    ys0, xs0 = max(0, y0p), max(0, x0p)
-    ah = min(hc - ys0, wi_h - ty)
-    aw = min(wc - xs0, wi_w - tx)
-    warped = jnp.zeros((hc, wc, 3), jnp.float32)
-    warped = warped.at[ys0:ys0 + ah, xs0:xs0 + aw].set(
-        warped_loc[ty:ty + ah, tx:tx + aw])
+    # The content warp is the u8 gather warp straight into canvas space
+    # (the queued frame holds integer u8 values, and the reference warps
+    # CV_8U mats too): exact for any correction, so every pixel the
+    # coverage marks holds content. The coverage "warp" of all-ones is the
+    # closed-form tent product.
+    warped = warp_affine_fast(frame_f32, m, out_h=hc, out_w=wc,
+                              border_mode=BORDER_CONSTANT)
     coverage = coverage_analytic(m, h, w, hc, wc)
 
     # Canvas refresh: covered pixels adopt the new frame (weighted by

@@ -8,8 +8,7 @@ three jit dispatches and three host<->HBM round-trips per frame. Here the
 whole chain is one XLA program over one combined state pytree: the frame
 crosses host->HBM once, every stage's intermediate stays on-chip, XLA fuses
 the enhancer's pointwise math into its neighbors, and the per-dispatch
-overhead (~150-300 us through the runtime per call — measured, DESIGN.md)
-is paid once instead of three times.
+overhead is paid once instead of three times.
 
 Used by io.runner.StabilizerApp when `fused=True` (default when all enabled
 stages are device-side).
@@ -17,7 +16,6 @@ stages are device-side).
 
 from __future__ import annotations
 
-import math
 from typing import NamedTuple, Optional
 
 import jax
@@ -50,7 +48,6 @@ from video_stab_tpu.ops.color import saturate_u8
 from video_stab_tpu.ops.warp import (
     BORDER_REPLICATE,
     rotation_matrix_2d,
-    warp_affine,
     warp_affine_fast,
 )
 
@@ -86,10 +83,11 @@ class ChainParams(NamedTuple):
     # (io/codec.VideoEncoder.encode_yuv consumes it directly).
     output_format: str = "bgr"
 
-    # Max composed-roll envelope the fused emit warp budgets for: its tap
-    # tables and pads scale with sin(envelope), and a wide-open acceptance
-    # band (the reference config ships angle_filter_max: 70) would explode
-    # them ~40x for angles no stabilized camera sustains.
+    # Widest roll acceptance band the fused (single-resample) path takes;
+    # a wide-open band (the reference config ships angle_filter_max: 70)
+    # keeps the reference's two-pass order. The budget dates from the
+    # tiled warp; the gather emit warp has none (ROADMAP.md, the warp
+    # envelope design item).
     AUX_ENVELOPE_CAP_DEG = 15.0
 
     @property
@@ -106,10 +104,8 @@ class ChainParams(NamedTuple):
         # ring, crop+zoom) happens on the QUEUED frame, and composing the
         # roll rotation afterwards would rotate the border ring into the
         # interior — only the two-pass order expresses those configs.
-        # Wide acceptance bands (> AUX_ENVELOPE_CAP_DEG) also fall back to
-        # the two-pass order with an EXACT gather warp (ADVICE r3):
-        # sustained tilt beyond the envelope must be corrected faithfully,
-        # not clamped to a degraded warp.
+        # Wide acceptance bands (> AUX_ENVELOPE_CAP_DEG) also take the
+        # two-pass order.
         return (self.fuse_roll
                 and self.mode.roll_correction_enabled
                 and self.mode.stabilizer_enabled
@@ -167,18 +163,7 @@ def _pre_stages(params: ChainParams, state: ChainState,
         h, w = f.shape[:2]
         roll_state = estimate_roll_angle(params.roll, roll_state, f)
         rot = rotation_matrix_2d(w / 2.0, h / 2.0, roll_state.smoothed_angle)
-        if params.roll_band_deg <= params.AUX_ENVELOPE_CAP_DEG:
-            # Roll angles stay inside the acceptance band (RollCorrection.cpp
-            # 124-136); tiled warp = exact bilinear at ~8x the gather speed.
-            f = warp_affine_fast(f, rot, border_mode=BORDER_REPLICATE,
-                                 max_angle_deg=max(12.0,
-                                                   params.aux_envelope_deg),
-                                 max_shift=128)
-        else:
-            # Wide-open band (reference ships angle_filter_max: 70): the
-            # tiled warp's envelope would explode; take the exact gather
-            # warp so sustained large tilts are corrected, not clamped.
-            f = warp_affine(f, rot, border_mode=BORDER_REPLICATE)
+        f = warp_affine_fast(f, rot, border_mode=BORDER_REPLICATE)
         if params.azc.enabled:
             # Remove the rotation's black corners before stabilization
             # (roll-correction-file.cpp:61-68); input size kept static.
@@ -203,15 +188,9 @@ def _pre_stages_fused(params: ChainParams, state: ChainState,
     sp = params.stabilizer
     gray = _analysis_gray(sp, f)
     # Rotation about the full-res center conjugated into analysis space —
-    # A = S R S^-1 — exact even for anisotropic analysis scaling. The
-    # anisotropy ratio inflates the off-diagonal slopes by sy/sx, so the
-    # warp envelope is the equivalent angle whose sin covers
-    # ratio * sin(aux band) (static: shapes and params fix it at trace).
+    # A = S R S^-1 — exact even for anisotropic analysis scaling.
     sx = sp.analysis_width / w
     sy = sp.analysis_height / h
-    ratio = max(sx / sy, sy / sx)
-    env_deg = math.degrees(math.asin(min(
-        0.95, ratio * math.sin(math.radians(params.aux_envelope_deg)))))
     r = rotation_matrix_2d(w / 2.0, h / 2.0, alpha)
     a_mat = jnp.stack([
         jnp.stack([r[0, 0], r[0, 1] * (sx / sy), r[0, 2] * sx]),
@@ -224,8 +203,7 @@ def _pre_stages_fused(params: ChainParams, state: ChainState,
     gray_rot = jax.lax.cond(
         alpha == 0.0,
         lambda g: g,
-        lambda g: warp_affine_fast(g, a_mat, border_mode=BORDER_REPLICATE,
-                                   max_angle_deg=env_deg, max_shift=64),
+        lambda g: warp_affine_fast(g, a_mat, border_mode=BORDER_REPLICATE),
         gray)
     f_u8 = saturate_u8(f) if params.mode.enhancer_enabled else frame_u8
     return roll_state, f_u8, alpha, gray_rot
@@ -377,8 +355,9 @@ class ProcessingChain:
         frame = np.ascontiguousarray(frame, dtype=np.uint8)
         h, w = frame.shape[:2]
         if self._state is None:
-            self._state = jax.device_put(
-                chain_state_init(self.params, h, w), jax.devices()[0])
+            # The default device (the GPU, or the device a
+            # jax.default_device context names).
+            self._state = jax.device_put(chain_state_init(self.params, h, w))
             self._shape = (h, w)
         elif self._shape != (h, w):
             raise ValueError("frame size changed; recreate the chain")

@@ -1,4 +1,4 @@
-"""Image enhancer — TPU-native rebuild of vs::Enhancer
+"""Image enhancer — rebuild of vs::Enhancer
 (src/Enhancer.cpp, include/video/Enhancer.h:11-43).
 
 The reference's CPU chain order is the canonical semantics here

@@ -1,4 +1,4 @@
-"""Legacy deterministic stabilizer — TPU-native rebuild of
+"""Legacy deterministic stabilizer — rebuild of
 src/Stabilizer_legacy.cpp (the RANSAC-free "robust shake-avoiding" variant
 that shares vs::Stabilizer's public API).
 
@@ -165,8 +165,7 @@ def legacy_emit_step_fn(params: LegacyStabilizerParams, state: LegacyState,
                               correction[2])
         canvas = warp_affine_fast(frame, m, out_h=h + 2 * b,
                                   out_w=w + 2 * b,
-                                  border_mode=border_mode,
-                                  max_shift=max(128, 2 * b))
+                                  border_mode=border_mode)
         cx = min(max(0, b // 2), 2 * b)
         cy = min(max(0, b // 2), 2 * b)
         out = canvas[cy:cy + h, cx:cx + w] if b > 0 else canvas

@@ -11,7 +11,7 @@ YAML configs written for the reference port over directly:
 All structs are frozen (hashable) dataclasses so they can be passed as static
 arguments to ``jax.jit`` — the whole per-frame step specializes on them.
 
-TPU-native additions are grouped at the bottom of each struct: analysis
+Additions with no reference counterpart are grouped at the bottom of each struct: analysis
 resolution is explicit (the reference hardcodes 960x540 steady state,
 src/Stabilizer.cpp:410), fixed feature capacity replaces dynamic point vectors,
 and RANSAC gets an explicit hypothesis count + seed (the reference relies on
@@ -55,11 +55,11 @@ class StabilizerParams:
     border_type: str = "black"       # black | reflect | reflect_101 | replicate | wrap | fade
     border_size: int = 0
     crop_n_zoom: bool = False
-    # Static rotation envelope (deg) of the emit warp kernel: corrections
-    # beyond it clamp (degrade, never crash). Post-smoothing corrections on
-    # real shake are well under 1 deg; 3 keeps the warp's tap count - and
-    # the per-frame cost, especially at 4K - half of what 6 costs. No
-    # reference counterpart (cv::warpAffine has no envelope).
+    # Static rotation envelope (deg), a budget from the tiled warp's days
+    # (ops/warp.warp_affine_tiled takes its own max_angle_deg). Nothing
+    # reads it: the emit and virtual-canvas warps are the u8 gather,
+    # exact for any correction. No reference counterpart (cv::warpAffine
+    # has no envelope).
     warp_envelope_deg: float = 3.0
     # Extra emit-warp rotation budget (deg) for an AUXILIARY per-frame
     # rotation composed into the correction — the fused-chain roll path
@@ -67,11 +67,6 @@ class StabilizerParams:
     # merges with the stabilizing warp into one resample. 0.0 = feature
     # off, emit path bit-identical to the plain stabilizer.
     aux_rotation_deg: float = 0.0
-    # Warp kernel branch selection: "auto" picks the small-rotation tap
-    # table per frame via lax.cond; "large" compiles one full-envelope
-    # kernel — the right choice for VMAPPED multi-stream serving, where
-    # vmap lowers a batched-predicate cond to both-branches + select.
-    warp_branch: str = "auto"
     # GFTT candidate extraction: "auto" = exact two-stage top_k with an
     # in-graph guard (lax.cond) falling back to the flat top_k; "flat"
     # forces the flat path; "staged" = cond-free single-branch two-stage
@@ -85,8 +80,8 @@ class StabilizerParams:
     # (predictNextMotion never called): effective behavior is off. Here it
     # is LIVE (coarse global-translation LK prior, ops/lk.py) but defaults
     # off to match the reference's effective behavior — the prior costs
-    # ~0.2 ms/frame and only pays off under large inter-frame motion
-    # (fast pans beyond LK's top-level drift budget).
+    # a correlation per frame and only pays off under large inter-frame
+    # motion (fast pans beyond LK's top-level drift budget).
     motion_prediction: bool = False
     horizon_lock: bool = False
 
@@ -147,7 +142,7 @@ class StabilizerParams:
     hf_freeze_duration: int = 10
     hf_motion_accumulator_decay: float = 0.9
 
-    # --- TPU-native knobs (no reference counterpart) ---------------------
+    # --- Knobs with no reference counterpart ----------------------------
     analysis_width: int = 960        # steady-state analysis resolution
     analysis_height: int = 540       # (Stabilizer.cpp:410 hardcodes 960x540)
     lk_window: int = 15              # LK window (Stabilizer.cpp:616)
@@ -158,7 +153,6 @@ class StabilizerParams:
     redetect_interval: int = 2       # feature re-detect cadence (Stabilizer.cpp:697)
     motion_model: str = "similarity"  # similarity (4-DOF, reference) | homography (8-DOF log-sl(3))
     seed: int = 0                    # stream PRNG seed for RANSAC
-    use_pallas: bool = True          # fused Pallas kernels on TPU where profitable
     # Scale the applied similarity correction's translation from analysis
     # pixels to full-frame pixels at emit. The reference estimates dx/dy on
     # the 960x540 analysis frame and warps the FULL-RES frame with them
@@ -242,7 +236,7 @@ class RollCorrectionParams:
     angle_filter_max: float = 10.0
     max_angle_change: float = 0.5        # per-frame clamp deg (RollCorrection.cpp:131-133)
 
-    # TPU-native knobs
+    # Knobs with no reference counterpart
     hough_rho: float = 1.0
     hough_theta_deg: float = 1.0
     max_lines: int = 64
@@ -292,7 +286,7 @@ class AutoZoomCropParams:
     morph_kernel: int = 5                # morphological close (AutoZoomCrop.cpp:130-139)
     out_width: int = 640                 # hardcoded 640x360 (AutoZoomCrop.cpp:246)
     out_height: int = 360
-    keep_input_size: bool = False        # TPU-native: resize back to input size instead
+    keep_input_size: bool = False        # no reference counterpart: resize back to input size
 
 
 @dataclasses.dataclass(frozen=True)
@@ -302,7 +296,7 @@ class ModeParams:
     width: int = 1920
     height: int = 1080
     optimize_fps: bool = True
-    use_cuda: bool = True       # accepted for config parity; ignored on TPU
+    use_cuda: bool = True       # accepted for config parity; ignored (JAX picks the device)
     enhancer_enabled: bool = False
     roll_correction_enabled: bool = False
     stabilizer_enabled: bool = False

@@ -1,4 +1,4 @@
-"""Roll correction — TPU-native rebuild of vs::RollCorrection
+"""Roll correction — rebuild of vs::RollCorrection
 (src/RollCorrection.cpp, include/video/RollCorrection.h:16-38).
 
 Per frame: downscale -> gray -> Canny -> Hough lines -> filter line angles to
@@ -90,13 +90,7 @@ def roll_correct_step(params: RollCorrectionParams, state: RollState,
     h, w = frame.shape[:2]
     state = estimate_roll_angle(params, state, frame)
     rot = rotation_matrix_2d(w / 2.0, h / 2.0, state.smoothed_angle)
-    # Envelope follows the acceptance band, capped at 15 deg (tap tables
-    # and pads scale with sin(envelope); beyond the cap the warp degrades
-    # — no stabilized camera sustains such tilt).
-    band = max(abs(params.angle_filter_min), abs(params.angle_filter_max))
-    out = warp_affine_fast(frame, rot, border_mode=BORDER_REPLICATE,
-                           max_angle_deg=max(12.0, min(15.0, band)),
-                           max_shift=128)
+    out = warp_affine_fast(frame, rot, border_mode=BORDER_REPLICATE)
     return state, saturate_u8(out)
 
 

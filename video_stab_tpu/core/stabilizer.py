@@ -1,4 +1,4 @@
-"""The streaming stabilizer — TPU-native rebuild of vs::Stabilizer.
+"""The streaming stabilizer — rebuild of vs::Stabilizer.
 
 Reference: src/Stabilizer.cpp (2688 LoC of hidden-state C++/OpenCV-CUDA);
 public surface include/video/Stabilizer.h:177-198 (stabilize/flush/clean).
@@ -29,7 +29,6 @@ Differences from the reference, by design (all documented in DESIGN.md):
 
 from __future__ import annotations
 
-import math
 from typing import Optional
 
 import jax
@@ -68,9 +67,8 @@ from video_stab_tpu.ops.warp import (
     rotation_matrix_2d,
     similarity_matrix,
     warp_affine_fast,
+    warp_perspective_fast,
 )
-
-WARP_MAX_SHIFT = 128    # translation envelope (px) of the emit warp
 
 
 # ---------------------------------------------------------------------------
@@ -195,6 +193,7 @@ def stabilizer_analyze_step_fn(params: StabilizerParams, state: StabilizerState,
         # log-homography model of arxiv 2011.08144). Intent scaling and the
         # drone HF chain are similarity-space heuristics and do not apply.
         from video_stab_tpu.motion.homography import (
+            conjugate,
             estimate_homography_ransac,
             log_homography,
         )
@@ -215,7 +214,7 @@ def stabilizer_analyze_step_fn(params: StabilizerParams, state: StabilizerState,
         s_mat = jnp.diag(jnp.asarray([sxf, syf, 1.0], jnp.float32))
         s_inv = jnp.diag(jnp.asarray([1.0 / sxf, 1.0 / syf, 1.0],
                                      jnp.float32))
-        raw = log_homography(s_mat @ h_mat @ s_inv).reshape(9)
+        raw = log_homography(conjugate(s_mat, h_mat, s_inv)).reshape(9)
     elif params.deep_stabilization:
         # Learned motion estimator in place of LK+RANSAC — the
         # deepStabilization/modelPath slot (Stabilizer.h:139-140,
@@ -438,10 +437,14 @@ def _smoothed_at_emit(params: StabilizerParams, state: StabilizerState,
     return state, sm
 
 
-def stabilizer_emit_step_fn(params: StabilizerParams, state: StabilizerState,
-                         ) -> tuple[StabilizerState, jnp.ndarray]:
-    """Emit the oldest queued frame, stabilized
-    (applyNextSmoothTransform, Stabilizer.cpp:763-1137)."""
+def stabilizer_emit_correction_fn(params: StabilizerParams,
+                                  state: StabilizerState,
+                                  ) -> tuple[StabilizerState, jnp.ndarray]:
+    """The correction applied to the queued frame at ``state.emit_idx``
+    (applyNextSmoothTransform's transform, Stabilizer.cpp:763-907): the
+    full-frame (dx, dy, da) for the similarity model, the sl(3)
+    log-homography (9,) for the homography model; zeros before the first
+    transform. Returns the state with the smoother's cursor advanced."""
     e = state.emit_idx
     has_transform = e < state.n_path
 
@@ -454,90 +457,64 @@ def stabilizer_emit_step_fn(params: StabilizerParams, state: StabilizerState,
     diff = smoothed - path_e
 
     if params.motion_model == "homography":
-        # sl(3) correction -> SL(3) warp; intent scaling is a
-        # similarity-space heuristic, skipped here.
+        # Intent scaling is a similarity-space heuristic, skipped here.
+        return state, jnp.where(has_transform, raw + diff,
+                                jnp.zeros(n_ch, jnp.float32))
+    # Motion-intent correction scaling (Stabilizer.cpp:854-888).
+    intent = analyze_motion_intent(state.trans_ring, state.n_path, raw, e)
+    scale = intent_correction_scale(intent, raw, e)
+    diff = diff * scale
+
+    t_smooth = jnp.where(has_transform, raw + diff,
+                         jnp.zeros(3, jnp.float32))
+    dx, dy = t_smooth[0], t_smooth[1]
+    da = jnp.where(params.horizon_lock, 0.0, t_smooth[2])  # (897-899)
+    if params.full_res_corrections:
+        # Analysis-px -> full-frame-px translation at the point of
+        # application. The reference warps the full-res frame with the
+        # analysis-space dx/dy unscaled (Stabilizer.cpp:901-907), which
+        # under-corrects translation by the analysis ratio — see
+        # StabilizerParams.full_res_corrections. Path-space heuristics
+        # above (intent, adaptive radius) stay in analysis units.
+        sxf = state.frame_ring.shape[2] / params.analysis_width
+        syf = state.frame_ring.shape[1] / params.analysis_height
+        if sxf != 1.0 or syf != 1.0:
+            dx = dx * jnp.float32(sxf)
+            dy = dy * jnp.float32(syf)
+    # The applied transform (post horizon lock) — also what the virtual
+    # canvas receives (the reference builds currentTransform from the
+    # locked da, Stabilizer.cpp:1131).
+    return state, jnp.stack([dx, dy, da])
+
+
+def stabilizer_emit_step_fn(params: StabilizerParams, state: StabilizerState,
+                         ) -> tuple[StabilizerState, jnp.ndarray]:
+    """Emit the oldest queued frame, stabilized
+    (applyNextSmoothTransform, Stabilizer.cpp:763-1137)."""
+    e = state.emit_idx
+    state, t_smooth = stabilizer_emit_correction_fn(params, state)
+
+    if params.motion_model == "homography":
+        # sl(3) correction -> SL(3) warp.
         from video_stab_tpu.motion.homography import exp_homography
-        t_smooth = jnp.where(has_transform, raw + diff,
-                             jnp.zeros(n_ch, jnp.float32))
         h_corr = exp_homography(t_smooth.reshape(3, 3))
         t_mat = None
         aux_alpha = None       # fused-chain roll is similarity-model only
-        # Envelope observability for the projective kernel's static
-        # envelope (rotation/shear slope, shift, projective budget —
-        # pallas/warp.warp_homography_u8 defaults). Near-identity
-        # corrections make the forward-map components a faithful proxy
-        # for the inverse map's.
-        from video_stab_tpu.pallas.warp import PROJ_BUDGET_DEFAULT
-        s_env = abs(math.sin(math.radians(params.warp_envelope_deg)))
-        exceeded = has_transform & (
-            (jnp.maximum(jnp.abs(h_corr[0, 2]), jnp.abs(h_corr[1, 2]))
-             > WARP_MAX_SHIFT)
-            | (jnp.abs(h_corr[0, 1]) > s_env)
-            | (jnp.abs(h_corr[1, 0]) > s_env)
-            | (jnp.abs(h_corr[2, 0]) > PROJ_BUDGET_DEFAULT)
-            | (jnp.abs(h_corr[2, 1]) > PROJ_BUDGET_DEFAULT))
     else:
-        # Motion-intent correction scaling (Stabilizer.cpp:854-888).
-        intent = analyze_motion_intent(state.trans_ring, state.n_path, raw, e)
-        scale = intent_correction_scale(intent, raw, e)
-        diff = diff * scale
-
-        t_smooth = jnp.where(has_transform, raw + diff,
-                             jnp.zeros(3, jnp.float32))
-        dx, dy = t_smooth[0], t_smooth[1]
-        da = jnp.where(params.horizon_lock, 0.0, t_smooth[2])  # (897-899)
-        if params.full_res_corrections:
-            # Analysis-px -> full-frame-px translation at the point of
-            # application. The reference warps the full-res frame with the
-            # analysis-space dx/dy unscaled (Stabilizer.cpp:901-907), which
-            # under-corrects translation by the analysis ratio — see
-            # StabilizerParams.full_res_corrections. Path-space heuristics
-            # above (intent, adaptive radius) stay in analysis units.
-            sxf = state.frame_ring.shape[2] / params.analysis_width
-            syf = state.frame_ring.shape[1] / params.analysis_height
-            if sxf != 1.0 or syf != 1.0:
-                dx = dx * jnp.float32(sxf)
-                dy = dy * jnp.float32(syf)
-        # The applied transform (post horizon lock) — also what the virtual
-        # canvas receives (the reference builds currentTransform from the
-        # locked da, Stabilizer.cpp:1131).
-        t_smooth = jnp.stack([dx, dy, da])
-        t_mat = similarity_matrix(dx, dy, da)
+        t_mat = similarity_matrix(t_smooth[0], t_smooth[1], t_smooth[2])
         h_corr = None
-        # Envelope observability: the warp clamps (degrades) silently when
-        # the applied correction leaves the static envelope
-        # (pallas/warp.py:22-25) — count those emissions so serving can
-        # alarm instead of shipping degraded frames unnoticed.
-        env_rad = math.radians(params.warp_envelope_deg)
-        exceeded = has_transform & (
-            (jnp.abs(da) > env_rad)
-            | (jnp.maximum(jnp.abs(dx), jnp.abs(dy)) > WARP_MAX_SHIFT))
-        if params.aux_rotation_deg > 0.0:
-            # Fused-chain roll: the queued frame's roll angle composes
-            # into this emission's warp; each component must stay inside
-            # its own share of the widened envelope.
-            aux_alpha = state.aux_roll_ring[e % state.frame_ring.shape[0]]
-            exceeded = exceeded | (
-                has_transform
-                & (jnp.abs(aux_alpha) > params.aux_rotation_deg))
-        else:
-            aux_alpha = None
+        # Fused-chain roll: the queued frame's roll angle composes into
+        # this emission's warp.
+        aux_alpha = (state.aux_roll_ring[e % state.frame_ring.shape[0]]
+                     if params.aux_rotation_deg > 0.0 else None)
 
     def _warp(image):
+        # u8 gather warps: exact bilinear for any correction, so nothing
+        # degrades and envelope_exceeded stays 0.
         if params.motion_model == "homography":
-            # Pallas projective strip kernel on TPU (pallas/warp.py), XLA
-            # gather elsewhere; u8 in/out like the affine path.
-            from video_stab_tpu.ops.warp import warp_perspective_fast
             return warp_perspective_fast(image, h_corr,
-                                         border_mode=BORDER_CONSTANT,
-                                         max_angle_deg=params.warp_envelope_deg,
-                                         max_shift=WARP_MAX_SHIFT,
-                                         branch=params.warp_branch)
-        # Pallas strip warp on TPU (pallas/warp.py), XLA tiled elsewhere:
-        # exact bilinear inside the static envelope; stabilizing
-        # corrections are small rotations + bounded translations.
+                                         border_mode=BORDER_CONSTANT)
         m_use = t_mat
-        env_deg = params.warp_envelope_deg
         if aux_alpha is not None:
             # Fused-chain roll: compose correction o roll-rotation about
             # the image center into ONE resample (the padded image's
@@ -547,18 +524,15 @@ def stabilizer_emit_step_fn(params: StabilizerParams, state: StabilizerState,
             r_mat = rotation_matrix_2d(image.shape[1] / 2.0,
                                        image.shape[0] / 2.0, aux_alpha)
             row3 = jnp.asarray([[0.0, 0.0, 1.0]], jnp.float32)
-            m_use = (jnp.concatenate([t_mat, row3], axis=0)
-                     @ jnp.concatenate([r_mat, row3], axis=0))[:2]
-            env_deg = params.warp_envelope_deg + params.aux_rotation_deg
-        return warp_affine_fast(image, m_use, border_mode=BORDER_CONSTANT,
-                                max_angle_deg=env_deg,
-                                max_shift=WARP_MAX_SHIFT,
-                                branch=params.warp_branch)
+            m_use = jnp.matmul(jnp.concatenate([t_mat, row3], axis=0),
+                               jnp.concatenate([r_mat, row3], axis=0),
+                               precision=jax.lax.Precision.HIGHEST)[:2]
+        return warp_affine_fast(image, m_use, border_mode=BORDER_CONSTANT)
 
     q = state.frame_ring.shape[0]
     # Stay u8 until a stage needs float math (fade blend, canvas) — the
     # reference's pipeline is CV_8U end-to-end and warp_affine_fast takes
-    # u8 directly; the padded-f32 detour cost ~2 ms/frame at 1080p.
+    # u8 directly.
     frame_u8 = state.frame_ring[e % q]
     needs_f32 = (params.border_type == "fade"
                  or (params.enable_virtual_canvas and not params.crop_n_zoom
@@ -627,7 +601,7 @@ def stabilizer_emit_step_fn(params: StabilizerParams, state: StabilizerState,
             and params.motion_model != "homography":
         # Virtual canvas runs on the RAW queued frame with the stabilizing
         # transform (Stabilizer.cpp:1130-1134), replacing the plain warp
-        # output. See core/canvas.py for the TPU reformulation. The active
+        # output. See core/canvas.py for the reformulation. The active
         # scale is decided at the first canvas use from recent motion when
         # adaptive_canvas_size is on (Stabilizer.cpp:2077, 2281-2306) and
         # frozen afterwards.
@@ -654,8 +628,6 @@ def stabilizer_emit_step_fn(params: StabilizerParams, state: StabilizerState,
         canvas=canvas,
         canvas_weight=canvas_weight,
         canvas_scale=canvas_scale,
-        envelope_exceeded=state.envelope_exceeded
-        + exceeded.astype(jnp.int32),
     )
     return new_state, out_u8
 

@@ -79,10 +79,10 @@ class StabilizerState(NamedTuple):
     # Conditional-CLAHE feature starvation counter (Stabilizer.h:422)
     starvation_counter: jnp.ndarray  # int32
 
-    # Envelope-violation observability: count of emitted corrections whose
-    # |rotation| or |shift| exceeded the static warp envelope
-    # (warp_envelope_deg / 128 px) — beyond it the Pallas/XLA warp clamps
-    # (degrades) silently, so the counter is the only signal.
+    # Envelope-violation observability: count of emitted corrections that
+    # a static warp envelope degraded. Every warp on the emit path (the
+    # plain emit and the virtual canvas) is the u8 gather warp, which has
+    # no envelope, so it stays 0 (kept for the metrics surface).
     envelope_exceeded: jnp.ndarray  # int32
 
     # Stream PRNG (RANSAC hypothesis sampling)

@@ -1,7 +1,7 @@
 """Host codec layer: native H.264/H.265 encode + decode (ctypes over
 ``native/codec.cpp`` -> system libavcodec/libx264).
 
-This is the TPU-host counterpart of the reference's encoder stack:
+This is the host counterpart of the reference's encoder stack:
 - examples/JetsonEncoder.cpp:22-116 (V4L2 HW encoder with CBR rate control)
   -> :class:`VideoEncoder` with a *honored* ``bitrate_bps`` (VBV/CBR).
 - src/RTSPServer.cpp:79-92 (x264enc zerolatency launch string)

@@ -7,7 +7,7 @@ interpipesink, and the output pipeline rtspclientsink), which is why
 passthrough adds only 10-20 ms (README_GSTD_INTERPIPE.md:157) while
 processing mode pays decode + re-encode (~50-100 ms, :158).
 
-This module is that packet domain for the TPU framework:
+This module is that packet domain for this framework:
 
 - :class:`PacketSource` — reads an Annex-B H.264 elementary stream (file or
   socket) and yields access units (lists of NAL units, bytes), no decode.

@@ -2,7 +2,7 @@
 
 SURVEY.md §5 ('Distributed communication backend'): the reference's
 inter-pipeline transport is interpipe in-process or RTSP over the network;
-the TPU-native equivalent scales INGEST across hosts and fans frames into
+the equivalent here scales INGEST across hosts and fans frames into
 the serving host over DCN, with the device mesh fed from one process.
 
 Protocol: length-prefixed JPEG frames over TCP —

@@ -3,8 +3,8 @@
 The reference runs an external TensorRT engine (ResNet18 TrafficCamNet,
 include/video/DeepStreamTracker.h:46-48) inside a GStreamer pipeline. Here
 detection is a first-class JAX model: a small anchor-free (CenterNet-style)
-convolutional detector whose matmul-heavy conv stack maps straight onto the
-MXU in bfloat16, with a fixed-K top-k decode so the whole forward + decode
+convolutional detector whose matmul-heavy conv stack runs on the matrix
+units in bfloat16, with a fixed-K top-k decode so the whole forward + decode
 stays one static-shape jitted program.
 
 Default classes mirror TrafficCamNet's: car, bicycle, person, roadsign.
@@ -21,7 +21,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-TRAFFICCAMNET_LABELS = ("car", "bicycle", "person", "roadsign")
+from video_stab_tpu.models.tracker import TRAFFICCAMNET_LABELS
 
 # Output stride of the backbone (CenterNet convention).
 STRIDE = 4
@@ -37,7 +37,7 @@ class DetectorConfig:
     widths: tuple = (32, 64, 128, 256)
     head_width: int = 128
     max_detections: int = 100        # maxTrackedObjects default (h:58)
-    dtype: Any = jnp.bfloat16        # MXU-friendly compute dtype
+    dtype: Any = jnp.bfloat16        # matrix-unit compute dtype
 
 
 class ConvBlock(nn.Module):

@@ -26,16 +26,16 @@ import dataclasses
 import queue
 import threading
 import time
-from typing import List, Optional, Sequence
+from typing import TYPE_CHECKING, List, Optional, Sequence
 
 import numpy as np
 
-from video_stab_tpu.models.detector import (
-    DetectorConfig,
-    TRAFFICCAMNET_LABELS,
-    create_detector,
-    detect,
-)
+if TYPE_CHECKING:
+    from video_stab_tpu.models.detector import DetectorConfig
+
+# TrafficCamNet's classes, the detector's defaults. Kept here so that the
+# tracker's parameters (read by the config loader) need no model library.
+TRAFFICCAMNET_LABELS = ("car", "bicycle", "person", "roadsign")
 
 
 @dataclasses.dataclass
@@ -243,6 +243,9 @@ class ObjectTracker:
     def __init__(self, params: Optional[TrackerParams] = None,
                  detector_cfg: Optional[DetectorConfig] = None,
                  detector_params=None, async_mode: bool = True):
+        from video_stab_tpu.models.detector import (DetectorConfig,
+                                                    create_detector)
+
         self.params = params or TrackerParams()
         cfg = detector_cfg or DetectorConfig(
             num_classes=len(self.params.labels),
@@ -271,6 +274,8 @@ class ObjectTracker:
     # -- inference + association ------------------------------------------
     def _infer(self, frame: np.ndarray) -> List[Detection]:
         import cv2
+
+        from video_stab_tpu.models.detector import detect
         p = self.params
         resized = cv2.resize(frame, (p.processing_width, p.processing_height))
         t0 = time.perf_counter()

@@ -1,6 +1,6 @@
 """Frame-to-frame motion estimation over masked fixed-capacity point sets.
 
-TPU-native counterparts of:
+Counterparts of:
 - cv::estimateAffinePartial2D with RANSAC (reference: src/Stabilizer.cpp:564-566,
   647-649 — reprojection threshold 5.0 px, 500 iterations): a fully vectorized
   RANSAC over similarity (4-DOF) models — all hypotheses evaluated in parallel

@@ -6,7 +6,7 @@ the smoothed value at the single emitted index. Because every smoother's
 output at index i depends on a bounded window of the path (box/gaussian) or
 only on the past (kalman/butterworth), the emitted values are reproduced
 EXACTLY from a fixed ring buffer of recent path samples — O(window) per frame,
-fully static shapes, and the whole thing lives in VMEM.
+fully static shapes, and the whole state stays on the device.
 
 Filter semantics replicated bit-for-bit-in-float32:
 - box:      Stabilizer.cpp:1139-1172 (count-normalized clamped window; identity

@@ -9,7 +9,7 @@ smoothed with any 1-D filter (including the L1-optimal one), and the
 correcting warp is exp(smoothed - path).
 
 All static-shape and jit-friendly: RANSAC evaluates all 4-point hypotheses
-in parallel (batched 8x8 solves on the MXU), the matrix log uses a Mercator
+in parallel (batched 8x8 solves), the matrix log uses a Mercator
 series (inter-frame homographies are near identity), and exp uses
 jax.scipy.linalg.expm.
 """
@@ -20,6 +20,19 @@ import functools
 
 import jax
 import jax.numpy as jnp
+
+# f32 products at full f32 precision on every backend (DESIGN.md §2a).
+_HIGHEST = jax.lax.Precision.HIGHEST
+
+
+def _mm(a: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
+    return jnp.matmul(a, b, precision=_HIGHEST)
+
+
+def conjugate(s: jnp.ndarray, h: jnp.ndarray, s_inv: jnp.ndarray
+              ) -> jnp.ndarray:
+    """S H S^-1: a homography moved into the coordinates S maps to."""
+    return _mm(_mm(s, h), s_inv)
 
 
 def _dlt_4pt(p: jnp.ndarray, q: jnp.ndarray):
@@ -126,13 +139,13 @@ def estimate_homography_ransac(prev: jnp.ndarray, curr: jnp.ndarray,
     a = jnp.concatenate([r1 * w[:, None], r2 * w[:, None]], axis=0)  # (2N,9)
     # Smallest right singular vector via eigh of the 9x9 normal matrix —
     # a (9,2N)@(2N,9) matmul + a tiny symmetric eigendecomposition,
-    # instead of a full (2N,9) SVD (TPU SVD on the streaming hot path
-    # measured tens of ms). Hartley normalization keeps A well enough
-    # conditioned that the squared condition number is harmless here.
-    ata = a.T @ a
+    # instead of a full (2N,9) SVD on the streaming hot path. Hartley
+    # normalization keeps A well enough conditioned that the squared
+    # condition number is harmless here.
+    ata = jnp.matmul(a.T, a, precision=_HIGHEST)
     _, vecs = jnp.linalg.eigh(ata)
     hn = vecs[:, 0].reshape(3, 3)             # smallest eigenvalue first
-    h = jnp.linalg.inv(t_q) @ hn @ t_p
+    h = _mm(_mm(jnp.linalg.inv(t_q), hn), t_p)
     h = h / jnp.where(jnp.abs(h[2, 2]) > 1e-9, h[2, 2], 1e-9)
 
     enough = (n_valid >= 8) & (scores[best] >= 4)
@@ -156,14 +169,17 @@ def log_homography(h: jnp.ndarray, n_terms: int = 12) -> jnp.ndarray:
     out = jnp.zeros((3, 3))
     for k in range(1, n_terms + 1):
         out = out + ((-1.0) ** (k + 1)) / k * term
-        term = term @ x
+        term = _mm(term, x)
     return out
 
 
 def exp_homography(l: jnp.ndarray) -> jnp.ndarray:
     """Matrix exponential sl(3) -> SL(3)."""
     import jax.scipy.linalg as jsl
-    return jsl.expm(l)
+
+    # expm's own products name no precision; pin them while tracing.
+    with jax.default_matmul_precision("highest"):
+        return jsl.expm(l)
 
 
 def smooth_homography_path(logs: jnp.ndarray, smoother) -> jnp.ndarray:

@@ -11,7 +11,7 @@ subject to the smoothed path staying within a crop box of the original.
 The reference library has nothing like this (its best is a gaussian filter);
 it is the main quality gap between "smoothed" and "cinematic" output.
 
-Solved TPU-style: ADMM with split variables z_k = D_k p, the p-update's
+Solved with static shapes: ADMM with split variables z_k = D_k p, the p-update's
 SPD system (I + rho * sum D_k^T D_k) p = rhs solved matrix-free by a fixed
 CG iteration — everything is jnp ops with static iteration counts, so the
 whole solver jit-compiles (no LP solver needed).

@@ -1,6 +1,6 @@
 // Native host codec layer: H.264/H.265 encode + decode over libavcodec.
 //
-// TPU-native counterpart of the reference's hardware/GStreamer codec stack:
+// Host counterpart of the reference's hardware/GStreamer codec stack:
 //   - examples/JetsonEncoder.cpp:22-116  (V4L2 NvVideoEncoder, CBR rate
 //     control, profile/level)            -> vs_enc_* below (libx264 with a
 //     real VBV/CBR rate controller; the encoder the reference's x264enc

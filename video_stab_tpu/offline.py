@@ -1,12 +1,11 @@
-"""Offline (batch) stabilization — the TPU throughput mode.
+"""Offline (batch) stabilization — the throughput mode.
 
 The reference is stream-only: one frame in, one frame out, per-frame CUDA
 calls. When the whole clip is available (file workflows, re-encode farms),
-a TPU prefers batch shapes: motion analysis runs as a `lax.scan` over the
-time axis (the only true sequential dependency), trajectory smoothing is one
-whole-path filter (the Pallas trajectory kernel — the stabilizer_cuda.cu
-counterpart), and warping is vmapped over frame chunks so the MXU/VPU see
-large regular batches.
+the device prefers batch shapes: motion analysis runs as a `lax.scan` over
+the time axis (the only true sequential dependency), trajectory smoothing is
+one whole-path filter, and warping is vmapped over frame chunks so each
+dispatch carries a large regular batch.
 
 API: ``stabilize_clip(frames, params)`` — frames (T, H, W, 3) uint8 in,
 stabilized (T, H', W', 3) uint8 out, same border/crop semantics as the
@@ -21,7 +20,6 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from video_stab_tpu import pallas as vpallas
 from video_stab_tpu.core.params import StabilizerParams
 from video_stab_tpu.core.stabilizer import _analysis_gray
 from video_stab_tpu.motion.estimate import estimate_similarity_ransac
@@ -30,7 +28,11 @@ from video_stab_tpu.ops.color import saturate_u8
 from video_stab_tpu.ops.features import good_features_to_track
 from video_stab_tpu.ops.lk import lk_track
 from video_stab_tpu.ops.resize import resize_bilinear
-from video_stab_tpu.ops.warp import BORDER_CONSTANT, similarity_matrix, warp_affine
+from video_stab_tpu.ops.warp import (
+    BORDER_CONSTANT,
+    similarity_matrix,
+    warp_affine_fast,
+)
 
 WARP_CHUNK = 8      # frames warped per vmapped dispatch
 
@@ -100,8 +102,8 @@ def _analyze_clip(params: StabilizerParams, frames_u8: jnp.ndarray,
 
 
 def _smooth_path(params: StabilizerParams, path: jnp.ndarray) -> jnp.ndarray:
-    """Whole-path smoothing per smoothing_method. Box uses the Pallas
-    trajectory kernel (reference stabilizer_cuda.cu semantics)."""
+    """Whole-path smoothing per smoothing_method. Box is the centered
+    clamped-window mean the streaming stabilizer smooths with."""
     if params.smoothing_method == "gaussian":
         k = gaussian_kernel(params.gaussian_sigma)
         c = k.shape[0] // 2
@@ -109,7 +111,8 @@ def _smooth_path(params: StabilizerParams, path: jnp.ndarray) -> jnp.ndarray:
         idx = jnp.arange(n)[:, None] + (jnp.arange(k.shape[0]) - c)[None, :]
         idx = jnp.where(idx < 0, -idx, idx)
         idx = jnp.where(idx > n - 1, 2 * n - 1 - idx, idx)
-        return jnp.einsum("k,nkc->nc", k, path[jnp.clip(idx, 0, n - 1)])
+        return jnp.einsum("k,nkc->nc", k, path[jnp.clip(idx, 0, n - 1)],
+                          precision=jax.lax.Precision.HIGHEST)
     if params.smoothing_method == "l1":
         # Cinematic L1-optimal path (motion/l1path.py; no reference
         # counterpart — the crop box bound comes from border_size, falling
@@ -143,10 +146,14 @@ def _smooth_path(params: StabilizerParams, path: jnp.ndarray) -> jnp.ndarray:
         x0 = jnp.stack([path[0], jnp.zeros(3)])
         (_, _), out = jax.lax.scan(step, (x0, jnp.zeros((2, 2, 3))), path[1:])
         return jnp.concatenate([path[:1], out], axis=0)
-    r = max(2, min(params.smoothing_radius, 50))
-    if params.use_pallas:
-        return vpallas.box_filter_centered(path, r)
-    # Pure-XLA fallback (use_pallas=False): same centered clamped window.
+    return box_filter_centered(path, max(2, min(params.smoothing_radius, 50)))
+
+
+def box_filter_centered(path: jnp.ndarray, r: int) -> jnp.ndarray:
+    """Centered count-normalized box filter over a (T, C) path: the window
+    [i-r, i+r] clamped to the path, divided by the true count
+    (boxFilterConvolve, src/Stabilizer.cpp:1156-1168). Identity when
+    T <= r (Stabilizer.cpp:1148-1150)."""
     n = path.shape[0]
     idx = jnp.arange(n)[:, None] + jnp.arange(-r, r + 1)[None, :]
     valid = (idx >= 0) & (idx <= n - 1)
@@ -154,6 +161,31 @@ def _smooth_path(params: StabilizerParams, path: jnp.ndarray) -> jnp.ndarray:
     w = valid.astype(path.dtype)[:, :, None]
     sm = jnp.sum(vals * w, axis=1) / jnp.maximum(jnp.sum(w, axis=1), 1.0)
     return jnp.where(n <= r, path, sm)
+
+
+def box_filter_convolve_reference(path: jnp.ndarray, r: int) -> jnp.ndarray:
+    """The reference's one raw CUDA kernel, boxFilterConvolveCUDA
+    (src/stabilizer_cuda.cu:7-67), in plain jnp over a (N,) or (N, C)
+    path: median-pad with r samples of the (upper) median on each side,
+    then out[i] = mean(padded[i .. i+r-1]), the mean of the r samples
+    ENDING at i-1. Its interior equals ``box_filter_centered`` with
+    window 2r'+1 = r, shifted by r'+1 (tests/test_offline.py)."""
+    if r <= 0:
+        return path
+    squeeze = path.ndim == 1
+    p2 = path[:, None] if squeeze else path
+    n, c = p2.shape
+    outs = []
+    for ch in range(c):
+        x = p2[:, ch]
+        med = jnp.sort(x)[n // 2]       # std::nth_element upper median
+        padded = jnp.concatenate([jnp.full((r,), med, x.dtype), x,
+                                  jnp.full((r,), med, x.dtype)])
+        csum = jnp.cumsum(jnp.concatenate([jnp.zeros((1,), x.dtype), padded]))
+        idx = jnp.arange(n)
+        outs.append((csum[idx + r] - csum[idx]) / float(r))
+    res = jnp.stack(outs, axis=1)
+    return res[:, 0] if squeeze else res
 
 
 @functools.partial(jax.jit, static_argnums=0)
@@ -167,6 +199,7 @@ def _analyze_clip_homography(params: StabilizerParams,
     log-homography model of arxiv 2011.08144). Coordinates are scaled from
     analysis to full resolution inside the conjugation S H S^-1."""
     from video_stab_tpu.motion.homography import (
+        conjugate,
         estimate_homography_ransac,
         log_homography,
     )
@@ -180,7 +213,7 @@ def _analyze_clip_homography(params: StabilizerParams,
         h_mat, _ok, _inl = estimate_homography_ransac(
             pts, curr_pts, valid, sub, threshold=params.ransac_threshold,
             n_hypotheses=params.ransac_hypotheses)
-        return log_homography(s_mat @ h_mat @ s_inv)
+        return log_homography(conjugate(s_mat, h_mat, s_inv))
 
     logs = _scan_motion(params, frames_u8, key, estimate)
     return jnp.concatenate([logs, jnp.zeros((1, 3, 3), jnp.float32)], axis=0)
@@ -200,11 +233,8 @@ def _stabilize_clip_homography(frames: np.ndarray,
     from video_stab_tpu.ops.warp import warp_perspective_fast
 
     def one(frame_u8, hm):
-        # branch="large": vmapped caller — a batched-predicate
-        # small/large cond would run both branches (see pallas/warp.py).
         out = warp_perspective_fast(frame_u8, hm,
-                                    border_mode=BORDER_CONSTANT,
-                                    branch="large")
+                                    border_mode=BORDER_CONSTANT)
         return saturate_u8(out)
 
     # Jitted ONCE outside the chunk loop — a fresh jit(vmap(...)) object
@@ -254,33 +284,14 @@ def stabilize_clip(frames: np.ndarray,
 
     b = params.border_pad
 
-    # The corrections are concrete at this point (offline), so the fast
-    # Pallas/tiled warp — exact bilinear INSIDE its static envelope, ~an
-    # order of magnitude faster than the per-pixel gather warp_affine on
-    # TPU — is selected exactly when every correction fits the envelope;
-    # out-of-envelope clips (strong drift under a wide smoother) keep the
-    # unbounded gather warp rather than silently clamping. One tiny sync
-    # on a (T, 3) array; batch jobs are not dispatch-bound.
-    cmax = np.asarray(jnp.max(jnp.abs(corrections), axis=0))
-    use_fast = bool(
-        max(cmax[0], cmax[1]) <= 100.0
-        and np.degrees(cmax[2]) <= params.warp_envelope_deg)
-
-    @functools.partial(jax.jit, static_argnums=())
+    @jax.jit
     def warp_chunk(chunk_u8, corr):
         def one(frame_u8, c):
-            f = frame_u8.astype(jnp.float32)
+            f = frame_u8
             if b > 0 and not params.crop_n_zoom:
                 f = jnp.pad(f, ((b, b), (b, b), (0, 0)))
             m = similarity_matrix(c[0], c[1], c[2])
-            if use_fast:
-                from video_stab_tpu.ops.warp import warp_affine_fast
-                out = warp_affine_fast(
-                    f, m, border_mode=BORDER_CONSTANT,
-                    max_angle_deg=params.warp_envelope_deg,
-                    max_shift=128, branch="large")
-            else:
-                out = warp_affine(f, m, border_mode=BORDER_CONSTANT)
+            out = warp_affine_fast(f, m, border_mode=BORDER_CONSTANT)
             if params.crop_n_zoom and b > 0:
                 out = resize_bilinear(out[b:h - b, b:w - b], h, w)
             return saturate_u8(out)

@@ -1,6 +1,6 @@
 """Color conversions with OpenCV value conventions (u8 domain, BGR order).
 
-TPU-native counterpart of the reference's cv::cvtColor call sites
+Counterpart of the reference's cv::cvtColor call sites
 (reference: src/Stabilizer.cpp:437,450; src/Enhancer.cpp:44,62;
 src/RollCorrection.cpp:51; src/AutoZoomCrop.cpp:116).
 
@@ -11,7 +11,11 @@ All functions take/return float32 arrays carrying u8-scaled values
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
+
+# f32 products at full f32 precision on every backend (DESIGN.md §2a).
+_HIGHEST = jax.lax.Precision.HIGHEST
 
 # OpenCV ITU-R BT.601 luma weights (B, G, R order).
 _GRAY_W = (0.114, 0.587, 0.299)
@@ -30,7 +34,7 @@ def saturate_u8(x: jnp.ndarray) -> jnp.ndarray:
 def bgr_to_gray(bgr: jnp.ndarray) -> jnp.ndarray:
     """(..., H, W, 3) BGR -> (..., H, W) gray. BT.601 weights like cv::COLOR_BGR2GRAY."""
     w = jnp.asarray(_GRAY_W, dtype=bgr.dtype)
-    return bgr @ w
+    return jnp.matmul(bgr, w, precision=_HIGHEST)
 
 
 def gray_to_bgr(gray: jnp.ndarray) -> jnp.ndarray:
@@ -101,9 +105,14 @@ def bgr_to_i420(bgr_u8: jnp.ndarray) -> jnp.ndarray:
     if h % 4 or w % 2:
         raise ValueError(f"I420 needs H%4==0 and W%2==0, got {h}x{w}")
     f = bgr_u8.astype(jnp.float32)
-    y = f @ jnp.asarray(_Y_W, jnp.float32) * (1.0 / 256.0) + 16.0
-    u = f @ jnp.asarray(_U_W, jnp.float32) * (1.0 / 256.0) + 128.0
-    v = f @ jnp.asarray(_V_W, jnp.float32) * (1.0 / 256.0) + 128.0
+
+    def dot(wts):
+        return jnp.matmul(f, jnp.asarray(wts, jnp.float32),
+                          precision=_HIGHEST) * (1.0 / 256.0)
+
+    y = dot(_Y_W) + 16.0
+    u = dot(_U_W) + 128.0
+    v = dot(_V_W) + 128.0
     # 2x2 chroma subsample (box average).
     u = u.reshape(h // 2, 2, w // 2, 2).mean(axis=(1, 3))
     v = v.reshape(h // 2, 2, w // 2, 2).mean(axis=(1, 3))
@@ -172,7 +181,7 @@ def bgr_to_lab(bgr: jnp.ndarray) -> jnp.ndarray:
     """cv::COLOR_BGR2Lab (u8 scaling: L*255/100, a/b offset by 128)."""
     rgb = bgr[..., ::-1] / 255.0
     lin = _srgb_to_linear(rgb)
-    xyz = lin @ _RGB2XYZ.T
+    xyz = jnp.matmul(lin, _RGB2XYZ.T, precision=_HIGHEST)
     xyz = xyz / _WHITE
     fx, fy, fz = _f_lab(xyz[..., 0]), _f_lab(xyz[..., 1]), _f_lab(xyz[..., 2])
     L = 116.0 * fy - 16.0
@@ -190,6 +199,6 @@ def lab_to_bgr(lab: jnp.ndarray) -> jnp.ndarray:
     fx = fy + a / 500.0
     fz = fy - b / 200.0
     xyz = jnp.stack([_f_lab_inv(fx), _f_lab_inv(fy), _f_lab_inv(fz)], axis=-1) * _WHITE
-    lin = xyz @ _XYZ2RGB.T
+    lin = jnp.matmul(xyz, _XYZ2RGB.T, precision=_HIGHEST)
     rgb = _linear_to_srgb(lin)
     return jnp.clip(rgb[..., ::-1] * 255.0, 0.0, 255.0)

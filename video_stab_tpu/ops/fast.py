@@ -1,6 +1,6 @@
 """FAST corner detection (+ ORB/BRISK-style rescoring) with static shapes.
 
-TPU-native counterpart of the reference's alternative feature detectors
+Counterpart of the reference's alternative feature detectors
 (detectFeatures, src/Stabilizer.cpp:1194-1266: GFTT | ORB | FAST | BRISK).
 
 FAST-9/16 fully vectorized: the 16 Bresenham-circle neighbors are 16 shifted
@@ -69,8 +69,7 @@ def _nms_topk(resp: jnp.ndarray, max_corners: int, min_distance: float,
     Greedy selection runs as parallel frontier rounds (_nms_compact,
     ops/features.py) — exact same result as candidate-by-candidate greedy,
     but a handful of (n, n) masked-any rounds instead of n_candidates tiny
-    sequential fori_loop steps (the ~14 ms-per-2048-steps pattern
-    DESIGN.md's GFTT rework measured on a v5e)."""
+    sequential fori_loop steps (DESIGN.md's GFTT rework)."""
     from video_stab_tpu.ops.features import _nms_compact
 
     h, w = resp.shape

@@ -1,6 +1,6 @@
 """Shi-Tomasi corner detection with fixed-capacity outputs.
 
-TPU-native counterpart of cv::goodFeaturesToTrack / cv::cuda::CornersDetector
+Counterpart of cv::goodFeaturesToTrack / cv::cuda::CornersDetector
 (reference: src/Stabilizer.cpp:339-359, 739-745; src/Stabilizer_legacy.cpp:167-176).
 
 Everything is static-shape: the detector returns exactly ``max_corners`` point
@@ -83,9 +83,8 @@ def good_features_to_track(
     cand = jnp.where(is_peak & (resp > thresh), resp, -1.0)
 
     n_cand = min(n_candidates, h * w)
-    # Candidate extraction. A flat top_k over the whole plane measured
-    # 0.65 ms of the 0.87 ms GFTT at 960x540 on a v5e — the single
-    # dominant cost. Two-stage EXACT replacement: per-row top-ROW_BUDGET
+    # Candidate extraction. A flat top_k over the whole plane was the
+    # single dominant cost of GFTT at 960x540. Two-stage EXACT replacement: per-row top-ROW_BUDGET
     # (cheap batched top_k over the 128-lane axis), then a global top_k
     # over the h*ROW_BUDGET survivors. Exact whenever no row holds more
     # than ROW_BUDGET candidates >= the reduced 2048th value — checked
@@ -109,9 +108,7 @@ def good_features_to_track(
         # stronger same-row candidates, most of which the min-distance NMS
         # would have used to suppress it anyway — a bounded, redetect-only
         # deviation that batched serving accepts in exchange for not
-        # running both cond branches under vmap (cost measured: 0.65 ms
-        # flat vs ~0.47 ms staged per stream per redetect tick at
-        # 960x540; DESIGN.md 5c).
+        # running both cond branches under vmap (DESIGN.md 5c).
         rv, ri = jax.lax.top_k(cand, ROW_BUDGET)          # (h, B)
         flat_v = rv.reshape(-1)
         flat_i = (jnp.arange(h, dtype=jnp.int32)[:, None] * w
@@ -191,8 +188,8 @@ def _nms_compact(top_vals: jnp.ndarray, top_idx: jnp.ndarray, w: int,
 
     # Greedy min-distance selection == the lexicographically-first maximal
     # independent set of the conflict graph under quality order. A
-    # candidate-by-candidate fori_loop is 2048 tiny SEQUENTIAL steps
-    # (~14 ms on a v5e); instead resolve whole frontiers in parallel
+    # candidate-by-candidate fori_loop is 2048 tiny SEQUENTIAL steps;
+    # instead resolve whole frontiers in parallel
     # rounds — exact same result, each round one (n, n) masked-any:
     #   SELECT i when every higher-ranked conflicting j is already
     #   suppressed; SUPPRESS i when a selected j conflicts with it.

@@ -1,13 +1,13 @@
 """Separable filtering, morphology, CLAHE and enhancement primitives.
 
-TPU-native counterparts of the reference's filtering call sites:
+Counterparts of the reference's filtering call sites:
 cv::GaussianBlur / cuda::createGaussianFilter (src/Enhancer.cpp:124,161),
 cv::createCLAHE (src/Enhancer.cpp:65, src/Stabilizer.cpp:2576),
 cuda morphology (src/AutoZoomCrop.cpp:125-139), cv::threshold
 (src/AutoZoomCrop.cpp:122,134), Sobel/Scharr derivatives inside
 goodFeaturesToTrack and calcOpticalFlowPyrLK.
 
-1-D convolutions along H/W are expressed as banded matmuls (MXU) built at
+1-D convolutions along H/W are expressed as banded matmuls built at
 trace time; morphology is shift-and-max over static structuring offsets.
 """
 
@@ -19,6 +19,9 @@ import math
 import numpy as np
 import jax
 import jax.numpy as jnp
+
+# f32 products at full f32 precision on every backend (DESIGN.md §2a).
+_HIGHEST = jax.lax.Precision.HIGHEST
 
 
 # ---------------------------------------------------------------------------
@@ -52,13 +55,13 @@ def sep_filter2d(img: jnp.ndarray, kh: tuple[float, ...], kw: tuple[float, ...])
         h, w = img.shape[-3], img.shape[-2]
         mh = jnp.asarray(_conv_matrix(h, tuple(kh)))
         mw = jnp.asarray(_conv_matrix(w, tuple(kw)))
-        x = jnp.einsum("oh,...hwc->...owc", mh, img)
-        return jnp.einsum("pw,...hwc->...hpc", mw, x)
+        x = jnp.einsum("oh,...hwc->...owc", mh, img, precision=_HIGHEST)
+        return jnp.einsum("pw,...hwc->...hpc", mw, x, precision=_HIGHEST)
     h, w = img.shape[-2], img.shape[-1]
     mh = jnp.asarray(_conv_matrix(h, tuple(kh)))
     mw = jnp.asarray(_conv_matrix(w, tuple(kw)))
-    x = jnp.einsum("oh,...hw->...ow", mh, img)
-    return jnp.einsum("pw,...hw->...hp", mw, x)
+    x = jnp.einsum("oh,...hw->...ow", mh, img, precision=_HIGHEST)
+    return jnp.einsum("pw,...hw->...hp", mw, x, precision=_HIGHEST)
 
 
 def gaussian_kernel_1d(sigma: float, ksize: int | None = None) -> tuple[float, ...]:
@@ -257,7 +260,7 @@ def unsharp_mask(img: jnp.ndarray, sharpness: float, blur_sigma: float) -> jnp.n
 
 def bilateral_denoise(img: jnp.ndarray, strength: float, radius: int = 3,
                       sigma_space: float = 2.0) -> jnp.ndarray:
-    """Edge-preserving denoise, the TPU-friendly stand-in for
+    """Edge-preserving denoise, the static-shape stand-in for
     cv::fastNlMeansDenoisingColored (Enhancer.cpp:130-135): a bilateral
     filter implemented as static shift-and-accumulate (pure VPU work, no
     data-dependent shapes). NLM's h parameter tracks the noise sigma; a

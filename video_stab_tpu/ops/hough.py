@@ -1,6 +1,6 @@
 """Hough line transform with a fixed-capacity line list.
 
-TPU-native counterpart of cv::cuda::createHoughLinesDetector
+Counterpart of cv::cuda::createHoughLinesDetector
 (reference: src/RollCorrection.cpp:66-73 — rho 1.0, theta pi/180,
 threshold 100). The (rho, theta) accumulator is built with a vectorized
 scatter-add over all pixels weighted by the edge mask (no data-dependent
@@ -44,9 +44,8 @@ def hough_lines(edges: jnp.ndarray, rho: float = 1.0,
         path deliberately does not reproduce: post-filter consumers get
         MORE in-window lines and a better-conditioned angle estimate;
         identical whenever total peak count <= max_lines). The full
-        180-bin sweep is a per-pixel scatter-add over every theta —
-        measured 200+ ms/frame in the fused chain; the 23-bin window is
-        ~8x cheaper.
+        180-bin sweep is a per-pixel scatter-add over every theta; the
+        23-bin window does ~8x less of that work.
       impl: "auto" — when the frame has <= max_edges edge pixels (the
         typical case: Canny keeps a few percent), compact them with one
         top_k and run ONE batched one-hot einsum over all thetas — exact,
@@ -83,12 +82,11 @@ def hough_lines(edges: jnp.ndarray, rho: float = 1.0,
     xs = jnp.arange(w, dtype=jnp.float32)[None, :]
     weight = (edges > 0).astype(jnp.bfloat16).reshape(-1)
 
-    # Histogram as a TWO-LEVEL one-hot matmul instead of a scatter-add:
-    # TPU scatters serialize (~tens of ns per element; the full-sweep
-    # scatter measured 200+ ms/frame in the fused chain). Split the rho
+    # Histogram as a TWO-LEVEL one-hot matmul instead of a scatter-add
+    # (a formulation chosen where scatters serialized). Split the rho
     # index r = 128*hi + lo; then acc[hi, lo] = sum_p w_p * onehot_hi(p)
-    # * onehot_lo(p) is one (n_hi, P) x (P, 128) matmul per theta — MXU
-    # work with small one-hots. Counts are exact: one-hots and 0/1
+    # * onehot_lo(p) is one (n_hi, P) x (P, 128) matmul per theta —
+    # matmul work with small one-hots. Counts are exact: one-hots and 0/1
     # weights are exact in bf16; f32 accumulation is integer-exact far
     # beyond any pixel count here.
     n_hi = -(-n_rho // 128)
@@ -121,7 +119,7 @@ def hough_lines(edges: jnp.ndarray, rho: float = 1.0,
             vals, idx = jax.lax.top_k(wf, cap)             # (K,)
             px = (idx % w).astype(jnp.float32)
             py = (idx // w).astype(jnp.float32)
-            # All thetas in ONE batched one-hot einsum (MXU): the serial
+            # All thetas in ONE batched one-hot einsum: the serial
             # per-theta map walks every pixel per theta; here each theta's
             # histogram contracts only the K compacted points.
             ridx = jnp.round(px[None, :] * cos_t[:, None]
@@ -133,8 +131,7 @@ def hough_lines(edges: jnp.ndarray, rho: float = 1.0,
             # int8 one-hots with i32 accumulation: the cost here is
             # MATERIALIZING the (T, K, n_hi + 128) one-hot operands, not
             # the matmul — i8 halves that traffic vs bf16, and 0/1
-            # weights make every count integer-exact in i32 (measured
-            # 0.66 -> ~0.4 ms at the 16k cap on the roll probe).
+            # weights make every count integer-exact in i32.
             whi = (hi[:, :, None] == jnp.arange(n_hi)[None, None, :]
                    ).astype(jnp.int8) \
                 * vals.astype(jnp.int8)[None, :, None]

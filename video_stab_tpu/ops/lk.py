@@ -1,6 +1,6 @@
-"""Sparse pyramidal Lucas-Kanade optical flow — MXU formulation.
+"""Sparse pyramidal Lucas-Kanade optical flow — matmul formulation.
 
-TPU-native counterpart of cv::calcOpticalFlowPyrLK / cuda::SparsePyrLKOpticalFlow
+Counterpart of cv::calcOpticalFlowPyrLK / cuda::SparsePyrLKOpticalFlow
 (reference: src/Stabilizer.cpp:122-125, 496-504, 611-619 — 15x15 window,
 maxLevel 2, 20 iterations, eps 0.03; src/Stabilizer_legacy.cpp:218-224 —
 21x21 window, maxLevel 3, 30 iterations, eps 0.01).
@@ -9,21 +9,17 @@ The tracker is fully static-shape: a fixed point capacity with a validity
 mask, fixed iteration counts with eps early-out via masking, batched over
 points.
 
-TPU-native sampling: windows are never gathered. Per pyramid level, a
-per-point source SLAB (big enough to cover the window plus the whole
-iteration drift budget) is extracted with ONE-HOT row/column selection
-matmuls — `slab = onehot_rows @ img @ onehot_cols` batched over points runs
-on the MXU at tens of TFLOPs, where the equivalent gather runs ~34 ns per
-element on the VPU path (measured 131 ms/frame at the reference budget; a
-per-point dynamic-slice formulation still cost ~17 ms because vmapped
-dynamic slices lower to gathers). Sub-pixel bilinear windows then come from
-separable hat-function interpolation matrices — two more tiny batched
-matmuls per iteration, all from VMEM-resident slabs. Index clamping in the
-one-hot build reproduces replicate-border (BORDER_REFLECT_101-free)
-semantics exactly, so no host-side padding pass exists at all.
-
-Full budget cost: ~35 GFLOP-equivalent of MXU work per frame pair — ~1 ms
-on a TPU v5e vs 17 ms for the slice formulation it replaces.
+Sampling: windows are never gathered. Per pyramid level, a per-point
+source SLAB (big enough to cover the window plus the whole iteration drift
+budget) is extracted with ONE-HOT row/column selection matmuls — `slab =
+onehot_rows @ img @ onehot_cols` batched over points — a formulation chosen
+where per-element gathers were slow. Sub-pixel bilinear windows then come
+from separable hat-function interpolation matrices — two more tiny batched
+matmuls per iteration. Index clamping in the one-hot build reproduces
+replicate-border (BORDER_REFLECT_101-free) semantics exactly, so no
+host-side padding pass exists at all. Full budget: ~35 GFLOP-equivalent of
+matmul work per frame pair. Whether a gather formulation is faster on the
+GPU is open (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -63,11 +59,11 @@ def _slab_select(img: jnp.ndarray, y0: jnp.ndarray, x0: jnp.ndarray,
     rx = jnp.clip(x0[:, None] + ss[None, :], 0, w - 1)
     hh = jnp.arange(h, dtype=jnp.int32)
     ww = jnp.arange(w, dtype=jnp.int32)
-    # Selection runs in bf16 on the MXU (the dominant matmul: (N,s,H) x
+    # Selection runs in bf16 (the dominant matmul: (N,s,H) x
     # (C,H,W) over the full level-0 plane). One-hot weights are exact in
     # any dtype; image values round to bf16 (ulp is 1.0 for values in
     # [128,256), so fractional pyramid-level values round by <=0.5
-    # u8-levels) — below LK's noise floor, ~4x the matmul throughput.
+    # u8-levels) — below LK's noise floor, at the bf16 matmul rate.
     # Accumulation stays f32.
     oh = (ry[:, :, None] == hh[None, None, :]).astype(jnp.bfloat16)
     ow = (rx[:, :, None] == ww[None, None, :]).astype(jnp.bfloat16)
@@ -96,27 +92,31 @@ def _interp_window(slab: jnp.ndarray, cy: jnp.ndarray, cx: jnp.ndarray,
     wx = _hat_weights(cx, win, s)
     if slab.ndim == 4:
         t = jnp.einsum("nia,ncab->ncib", wy, slab,
-                       preferred_element_type=jnp.float32)
+                       preferred_element_type=jnp.float32,
+                       precision=jax.lax.Precision.HIGHEST)
         return jnp.einsum("njb,ncib->ncij", wx, t,
-                          preferred_element_type=jnp.float32)
+                          preferred_element_type=jnp.float32,
+                          precision=jax.lax.Precision.HIGHEST)
     t = jnp.einsum("nia,nab->nib", wy, slab,
-                   preferred_element_type=jnp.float32)
+                   preferred_element_type=jnp.float32,
+                   precision=jax.lax.Precision.HIGHEST)
     return jnp.einsum("njb,nib->nij", wx, t,
-                      preferred_element_type=jnp.float32)
+                      preferred_element_type=jnp.float32,
+                      precision=jax.lax.Precision.HIGHEST)
 
 
 def global_translation_prior(prev_small: jnp.ndarray,
                              curr_small: jnp.ndarray,
                              search: int = 24) -> jnp.ndarray:
     """Coarse global translation (dx, dy) between two small grayscale
-    frames via zero-mean center-patch correlation — ONE tiny MXU conv.
+    frames via zero-mean center-patch correlation — ONE tiny conv.
 
     The stabilizer's inter-frame motion is dominated by a global shift
     (shake); seeding LK with it keeps the top-level Newton solve inside
     its convergence basin, so the early-exit fires. (A constant-velocity
-    prior from the previous transform measured 2x SLOWER than no prior:
-    shake is anti-correlated frame-to-frame, so "same as last time" lands
-    OUTSIDE the basin. Measure, then predict.)
+    prior from the previous transform does worse than no prior: shake is
+    anti-correlated frame-to-frame, so "same as last time" lands OUTSIDE
+    the basin.)
 
     Confidence-gated: on flat/ambiguous content the correlation peak is
     not significant (z-score of the peak against the correlation surface)
@@ -136,14 +136,15 @@ def global_translation_prior(prev_small: jnp.ndarray,
         (patch + 2 * search, patch + 2 * search))
     region = region - jnp.mean(region)
     n = 2 * search + 1
-    # Channelized correlation: a single-channel KxK spatial conv utilizes
-    # ~1/128 of the MXU (channel padding) and measured ~1 ms; putting the
-    # patch ROWS on the input-channel axis makes the contraction
-    # patch*patch wide — the same 10 MFLOPs at real MXU utilization.
+    # Channelized correlation: a single-channel KxK spatial conv pads its
+    # channel axis; putting the patch ROWS on the input-channel axis makes
+    # the contraction patch*patch wide — the same 10 MFLOPs as one wide
+    # product.
     rows = jnp.stack([region[i:i + n, :] for i in range(patch)])
     corr = jax.lax.conv_general_dilated(
         rows[None], p[None, :, None, :], (1, 1), "VALID",
         dimension_numbers=("NCHW", "OIHW", "NCHW"),
+        precision=jax.lax.Precision.HIGHEST,
         preferred_element_type=jnp.float32)[0, 0]   # (n, n)
     idx = jnp.argmax(corr)
     peak = corr.reshape(-1)[idx]
@@ -254,8 +255,8 @@ def lk_track(prev_gray: jnp.ndarray, curr_gray: jnp.ndarray,
             c_slab = _slab_select(curr_l, cy0, cx0, s_c)   # (N,s_c,s_c)
 
             # One Newton step, op-count-minimized: the serial iteration
-            # chain is bound by per-op fixed cost (~1-3 us/op measured,
-            # tools/lk_op_probe.py), not MACs — so both hat-weight builds
+            # chain is bound by per-op fixed cost (tools/lk_op_probe.py),
+            # not MACs — so both hat-weight builds
             # fuse into ONE broadcast op and the two image-residual
             # reductions into ONE einsum against the stacked gradients.
             ii = jnp.arange(win, dtype=jnp.float32)[None, None, :, None]
@@ -269,11 +270,14 @@ def lk_track(prev_gray: jnp.ndarray, curr_gray: jnp.ndarray,
                 c2 = jnp.stack([cy, cx], axis=1)[:, :, None, None]
                 wyx = jnp.maximum(0.0, 1.0 - jnp.abs(c2 + ii - aa))
                 t = jnp.einsum("nia,nab->nib", wyx[:, 0], c_slab,
-                               preferred_element_type=jnp.float32)
+                               preferred_element_type=jnp.float32,
+                               precision=jax.lax.Precision.HIGHEST)
                 j_win = jnp.einsum("njb,nib->nij", wyx[:, 1], t,
-                                   preferred_element_type=jnp.float32)
+                                   preferred_element_type=jnp.float32,
+                                   precision=jax.lax.Precision.HIGHEST)
                 b = jnp.einsum("nij,ncij->nc", j_win - i_win, g_stack,
-                               preferred_element_type=jnp.float32)
+                               preferred_element_type=jnp.float32,
+                               precision=jax.lax.Precision.HIGHEST)
                 dx = -(inv11 * b[:, 0] + inv12 * b[:, 1])
                 dy = -(inv12 * b[:, 0] + inv22 * b[:, 1])
                 step = jnp.where(done, 0.0, 1.0)[:, None]

@@ -1,13 +1,12 @@
-"""Bilinear resize and image pyramids, formulated as matmuls for the MXU.
+"""Bilinear resize and image pyramids, formulated as matmuls.
 
-TPU-native counterpart of the reference's cv::resize / cv::cuda::resize call
+Counterpart of the reference's cv::resize / cv::cuda::resize call
 sites (reference: src/Stabilizer.cpp:298,436,449; src/RollCorrection.cpp:41)
 and cv::calcOpticalFlowPyrLK's internal pyramid (src/Stabilizer.cpp:611-619).
 
 Bilinear resampling is a separable linear operator, so ``resize(img)`` is
-``Wh @ img @ Ww`` with banded weight matrices built at trace time — this puts
-the whole resize on the MXU instead of scalar gather loops, which is how the
-hot 1080p->540p analysis downscale reaches speed-of-light on HBM bandwidth.
+``Wh @ img @ Ww`` with banded weight matrices built at trace time — the whole
+resize is two dense products instead of per-pixel gathers.
 """
 
 from __future__ import annotations
@@ -15,7 +14,11 @@ from __future__ import annotations
 import functools
 
 import numpy as np
+import jax
 import jax.numpy as jnp
+
+# f32 products at full f32 precision on every backend (DESIGN.md §2a).
+_HIGHEST = jax.lax.Precision.HIGHEST
 
 
 @functools.lru_cache(maxsize=128)
@@ -53,11 +56,11 @@ def resize_bilinear(img: jnp.ndarray, out_h: int, out_w: int) -> jnp.ndarray:
     x = img.astype(dtype)
     if has_channels:
         # (..., H, W, C): contract H then W.
-        x = jnp.einsum("oh,...hwc->...owc", wh, x)
-        x = jnp.einsum("pw,...hwc->...hpc", ww, x)
+        x = jnp.einsum("oh,...hwc->...owc", wh, x, precision=_HIGHEST)
+        x = jnp.einsum("pw,...hwc->...hpc", ww, x, precision=_HIGHEST)
         return x
-    x = jnp.einsum("oh,...hw->...ow", wh, x)
-    x = jnp.einsum("pw,...hw->...hp", ww, x)
+    x = jnp.einsum("oh,...hw->...ow", wh, x, precision=_HIGHEST)
+    x = jnp.einsum("pw,...hw->...hp", ww, x, precision=_HIGHEST)
     return x
 
 
@@ -66,8 +69,7 @@ def resample_axis_aligned(img: jnp.ndarray, y0, sy, x0, sx,
     """Bilinear sampling of (H, W[, C]) at the axis-aligned map
     ``src = (x0 + x * sx, y0 + y * sy)`` with TRACED (dynamic) offsets and
     scales — ``warp_affine`` restricted to diagonal maps, as two on-device
-    interpolation-matrix matmuls instead of a 2-D gather (the gather
-    formulation costs ~19 ms at 1080p; this is MXU work).
+    interpolation-matrix matmuls instead of a 2-D gather.
 
     Exact: for an axis-aligned map bilinear separates, out[o,p] =
     sum_ij wy[o,i] * wx[p,j] * img[i,j] with tent weights — the dense
@@ -87,10 +89,10 @@ def resample_axis_aligned(img: jnp.ndarray, y0, sy, x0, sx,
     wx = jnp.maximum(0.0, 1.0 - jnp.abs(sx_o[:, None] - ix[None, :]))
     x = img.astype(jnp.float32)
     if has_c:
-        x = jnp.einsum("oh,hwc->owc", wy, x)
-        return jnp.einsum("pw,owc->opc", wx, x)
-    x = jnp.einsum("oh,hw->ow", wy, x)
-    return jnp.einsum("pw,ow->op", wx, x)
+        x = jnp.einsum("oh,hwc->owc", wy, x, precision=_HIGHEST)
+        return jnp.einsum("pw,owc->opc", wx, x, precision=_HIGHEST)
+    x = jnp.einsum("oh,hw->ow", wy, x, precision=_HIGHEST)
+    return jnp.einsum("pw,ow->op", wx, x, precision=_HIGHEST)
 
 
 # cv::pyrDown 5-tap kernel (1 4 6 4 1)/16.
@@ -120,8 +122,8 @@ def pyr_down(img: jnp.ndarray) -> jnp.ndarray:
     h, w = img.shape[-2], img.shape[-1]
     wh = jnp.asarray(_pyr_down_weights(h))
     ww = jnp.asarray(_pyr_down_weights(w))
-    x = jnp.einsum("oh,...hw->...ow", wh, img)
-    return jnp.einsum("pw,...hw->...hp", ww, x)
+    x = jnp.einsum("oh,...hw->...ow", wh, img, precision=_HIGHEST)
+    return jnp.einsum("pw,...hw->...hp", ww, x, precision=_HIGHEST)
 
 
 def build_pyramid(img: jnp.ndarray, levels: int) -> list[jnp.ndarray]:

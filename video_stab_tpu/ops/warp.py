@@ -1,6 +1,6 @@
 """Affine warping and remapping with OpenCV border-mode semantics.
 
-TPU-native counterpart of the reference's warp call sites:
+Counterpart of the reference's warp call sites:
 cv::warpAffine / cv::cuda::warpAffine (src/Stabilizer.cpp:1024-1060,
 src/Stabilizer_legacy.cpp:477-498, src/AutoZoomCrop.cpp:270) and
 cv::cuda::buildWarpAffineMaps + remap (src/RollCorrection.cpp:146-149).
@@ -161,11 +161,8 @@ def warp_affine_tiled(img: jnp.ndarray, m: jnp.ndarray,
 
     Same result as ``warp_affine`` (direct 2D bilinear, cv2 semantics) but
     built from dynamic slices + static shifted views instead of per-pixel
-    gathers: XLA gathers cost ~34 ns/element on TPU (measured: 69 ms for a
-    1080p warp). This is the portable/CPU path; on TPU the hot callers
-    dispatch to the Pallas strip kernel (pallas/warp.py, 3.6x faster —
-    vmapped slab slices still lower to gathers here) through
-    ``warp_affine_fast``. Per (8, 128) output tile the
+    gathers. No hot path uses it: inside the GPU chain step it lost to the
+    u8 gather warp (``warp_affine_fast``; PERF.md). Per (8, 128) output tile the
     source footprint of an affine map is a slab of statically bounded size;
     one dynamic_slice fetches it, and exact bilinear reconstruction is a
     static sum over (ry, rx) integer offsets weighted by hat functions
@@ -265,65 +262,41 @@ def warp_affine_tiled(img: jnp.ndarray, m: jnp.ndarray,
     return full if has_c else full[:, :, 0]
 
 
+def _to_u8(img: jnp.ndarray) -> jnp.ndarray:
+    if img.dtype != jnp.uint8:
+        img = jnp.clip(jnp.round(img), 0, 255).astype(jnp.uint8)
+    return img
+
+
 def warp_affine_fast(img: jnp.ndarray, m: jnp.ndarray,
                      out_h: int | None = None, out_w: int | None = None,
                      border_mode: int = BORDER_CONSTANT,
-                     border_value: float = 0.0,
-                     max_angle_deg: float = 6.0,
-                     max_shift: int = 128,
-                     branch: str = "auto") -> jnp.ndarray:
-    """u8-domain warp dispatcher for the hot per-frame paths.
+                     border_value: float = 0.0) -> jnp.ndarray:
+    """u8-domain affine warp for the hot per-frame paths.
 
-    On TPU: the Pallas whole-plane kernel (pallas/warp.py, ~3.5x faster
-    than the tiled XLA formulation and 1.5 s to compile instead of 36 s).
-    Elsewhere: warp_affine_tiled. Both paths quantize input and output to
-    u8 — exactly the reference's CV_8U cv::warpAffine semantics
-    (src/Stabilizer.cpp:1024-1060) — and return float32 holding integers
-    so downstream math is unchanged.
+    The gather ``warp_affine`` on the u8 frame: input and output are
+    quantized to u8 — exactly the reference's CV_8U cv::warpAffine
+    semantics (src/Stabilizer.cpp:1024-1060) — and the result is float32
+    holding integers so downstream math is unchanged. Gathering u8 moves a
+    quarter of the bytes of an f32 gather; XLA fuses the four taps, the
+    weights and the rounding into one kernel. Exact for any map: there is
+    no envelope to leave. Chosen over ``warp_affine_tiled`` by timing both
+    inside the chain step on the GPU (PERF.md, bring-up findings).
     """
-    from video_stab_tpu.pallas import on_tpu
-    if img.dtype != jnp.uint8:
-        img = jnp.clip(jnp.round(img), 0, 255).astype(jnp.uint8)
-    if on_tpu():
-        from video_stab_tpu.pallas.warp import warp_affine_u8
-        out = warp_affine_u8(img, m, out_h, out_w, border_mode,
-                             border_value, max_angle_deg=max_angle_deg,
-                             max_shift=max_shift, branch=branch)
-        return out.astype(jnp.float32)
-    out = warp_affine_tiled(img.astype(jnp.float32), m, out_h, out_w,
-                            border_mode, border_value,
-                            max_angle_deg=max_angle_deg,
-                            max_shift=max_shift)
+    out = warp_affine(_to_u8(img), m, out_h, out_w, border_mode,
+                      border_value)
     return jnp.clip(jnp.round(out), 0, 255)
 
 
 def warp_perspective_fast(img: jnp.ndarray, h_mat: jnp.ndarray,
                           out_h: int | None = None, out_w: int | None = None,
                           border_mode: int = BORDER_CONSTANT,
-                          border_value: float = 0.0,
-                          max_angle_deg: float = 6.0,
-                          max_shift: int = 128,
-                          branch: str = "auto") -> jnp.ndarray:
-    """u8-domain PROJECTIVE warp dispatcher for the homography emit path.
-
-    On TPU: the Pallas strip kernel with per-pixel perspective divide
-    (pallas/warp.warp_homography_u8) — replaces the ~19 ms gather
-    warp_perspective at 1080p. Elsewhere: the XLA gather formulation.
-    Both quantize input and output to u8 (the reference pipeline is CV_8U
-    end-to-end) and return float32 holding integers, mirroring
-    warp_affine_fast.
-    """
-    from video_stab_tpu.pallas import on_tpu
-    if img.dtype != jnp.uint8:
-        img = jnp.clip(jnp.round(img), 0, 255).astype(jnp.uint8)
-    if on_tpu():
-        from video_stab_tpu.pallas.warp import warp_homography_u8
-        out = warp_homography_u8(img, h_mat, out_h, out_w, border_mode,
-                                 border_value, max_angle_deg=max_angle_deg,
-                                 max_shift=max_shift, branch=branch)
-        return out.astype(jnp.float32)
-    out = warp_perspective(img.astype(jnp.float32), h_mat, out_h, out_w,
-                           border_mode, border_value)
+                          border_value: float = 0.0) -> jnp.ndarray:
+    """u8-domain PROJECTIVE warp for the homography emit path: the gather
+    ``warp_perspective`` on the u8 frame, quantized like
+    ``warp_affine_fast`` (the reference pipeline is CV_8U end-to-end)."""
+    out = warp_perspective(_to_u8(img), h_mat, out_h, out_w, border_mode,
+                           border_value)
     return jnp.clip(jnp.round(out), 0, 255)
 
 

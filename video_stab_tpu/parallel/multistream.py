@@ -1,15 +1,15 @@
-"""Multi-stream batched serving over a TPU device mesh.
+"""Multi-stream batched serving over a device mesh.
 
 The reference serves one stream per process (hidden static state forbids
 more — SURVEY.md §5 'race detection'). Here the stabilizer step is a pure
 function over an explicit state pytree, so N independent streams batch as a
-leading axis and shard across TPU cores:
+leading axis and shard across devices:
 
     mesh     = Mesh(devices, ("stream",))
     states   = batched state pytree, sharded P("stream")
     frames   -> (N, H, W, 3) uint8, sharded P("stream")
-    step     = jit(vmap(analyze_fn))  — XLA partitions the batch over ICI
-               with no collectives (streams are independent; this is the
+    step     = jit(vmap(analyze_fn))  — XLA partitions the batch over the
+               devices with no collectives (streams are independent; this is the
                'embarrassingly parallel' end of the sharding spectrum, which
                is exactly what multi-camera serving wants: zero cross-chip
                traffic in steady state).
@@ -17,7 +17,7 @@ leading axis and shard across TPU cores:
 Reference counterpart: one Stabilizer instance per camera + gstd
 process-level dataflow (SURVEY.md §2 'Parallelism & communication
 inventory'); BASELINE.json config 5 ("8x concurrent 1080p streams batched
-across a TPU slice").
+across a device mesh").
 """
 
 from __future__ import annotations
@@ -93,11 +93,8 @@ class MultiStreamStabilizer:
             # vmap lowers batched-predicate lax.conds (the GFTT fallback
             # guards) to both-branches + select; pick the single-branch
             # "staged" variant here — two-stage candidate extraction with
-            # no cond anywhere (~0.47 ms vs 0.65 ms flat per redetect
-            # tick, ops/features.py). The WARP doesn't need this: its
-            # tap-table tier is data (a prefetched per-stream scalar
-            # branched on inside the kernel), so warp_branch="auto" vmaps
-            # cleanly with per-stream table selection.
+            # no cond anywhere (ops/features.py). The emit warp needs no
+            # such choice: the gather warp has no branches.
             import dataclasses
             params = dataclasses.replace(params, gftt_topk="staged")
         self.params = params

@@ -21,8 +21,6 @@ import threading
 import time
 from typing import Any, Callable, Optional
 
-import yaml
-
 from video_stab_tpu.core.params import (
     AutoZoomCropParams,
     EnhancerParams,
@@ -114,6 +112,8 @@ def _coerce(cls, section: dict, extra_map: Optional[dict] = None):
 def parse_config_text(text: str) -> AppConfig:
     # The OpenCV FileStorage dialect starts with "%YAML:1.0" which PyYAML
     # rejects as a directive; strip it (and a possible "---").
+    import yaml
+
     lines = [ln for ln in text.splitlines()
              if not ln.strip().startswith("%YAML")]
     raw = yaml.safe_load("\n".join(lines)) or {}
@@ -195,6 +195,8 @@ def save_config(cfg: AppConfig, path: str) -> None:
         "deepstream_tracker": section(cfg.tracker, skip=("labels",)),
         "roll_fusion": cfg.roll_fusion,
     }
+    import yaml
+
     with open(path, "w") as f:
         f.write("%YAML:1.0\n")
         yaml.safe_dump(doc, f, sort_keys=False)

@@ -5,7 +5,7 @@ The reference's observability is tagged prints + ad-hoc chrono timers
 DeepStreamTracker.cpp:119-129, main-ffmpeg.cpp:686-695). Here it is a
 first-class metrics struct: named counters, per-stage millisecond
 histograms, and an FPS meter, all cheap enough for per-frame use, plus a
-`trace` contextmanager that forwards to jax.profiler for TPU timelines.
+`trace` contextmanager that forwards to jax.profiler for device timelines.
 """
 
 from __future__ import annotations
